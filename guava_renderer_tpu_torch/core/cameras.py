@@ -1,0 +1,64 @@
+"""Pinhole camera with the Gaussian-splatting projection conventions
+(counterpart of `guava_renderer_tpu/core/cameras.py`).
+
+COLMAP-style world-to-camera, GL-style perspective with z_near=0.01 /
+z_far=100, and the rasterizer's ndc->pixel mapping `((ndc + 1) * S - 1) / 2`.
+Matrices are kept in math convention (apply as M @ p).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    R: torch.Tensor        # (3, 3) world-to-camera rotation
+    t: torch.Tensor        # (3,) world-to-camera translation
+    tanfovx: torch.Tensor  # 0-d f32
+    tanfovy: torch.Tensor  # 0-d f32
+    width: int
+    height: int
+    znear: float = 0.01
+    zfar: float = 100.0
+
+    @staticmethod
+    def from_w2c(w2c: torch.Tensor, tanfov: float, width: int, height: int) -> "Camera":
+        """Camera from a (4, 4) world-to-camera matrix and a square fov."""
+        tf = torch.tensor(tanfov, dtype=torch.float32, device=w2c.device)
+        return Camera(R=w2c[:3, :3], t=w2c[:3, 3], tanfovx=tf, tanfovy=tf,
+                      width=width, height=height)
+
+    @property
+    def focal_x(self) -> torch.Tensor:
+        return self.width / (2.0 * self.tanfovx)
+
+    @property
+    def focal_y(self) -> torch.Tensor:
+        return self.height / (2.0 * self.tanfovy)
+
+    def view_matrix(self) -> torch.Tensor:
+        V = torch.zeros((4, 4), dtype=torch.float32, device=self.R.device)
+        V[:3, :3] = self.R
+        V[:3, 3] = self.t
+        V[3, 3] = 1.0
+        return V
+
+    def proj_matrix(self) -> torch.Tensor:
+        zn, zf = self.znear, self.zfar
+        P = torch.zeros((4, 4), dtype=torch.float32, device=self.R.device)
+        P[0, 0] = 1.0 / self.tanfovx
+        P[1, 1] = 1.0 / self.tanfovy
+        P[2, 2] = zf / (zf - zn)
+        P[2, 3] = -(zf * zn) / (zf - zn)
+        P[3, 2] = 1.0
+        return P
+
+    def full_proj_matrix(self) -> torch.Tensor:
+        return self.proj_matrix() @ self.view_matrix()
+
+
+def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
+    return ((v + 1.0) * size - 1.0) * 0.5

@@ -1,0 +1,186 @@
+"""StyleUNet-small: a UNet encoder + StyleGAN2-CSFT generator (counterpart
+of `guava_renderer_tpu/models/styleunet.py`, StyleUNet with small=True).
+
+A bilinear ResBlock UNet produces a style code (4x4 bottleneck -> linear)
+and per-scale SFT scale/shift conditions; a StyleGAN2 generator with weight
+(de)modulation consumes them, with one style conv and one plain conv per
+scale. Modulation scales the inputs, one shared conv runs, and
+demodulation scales the outputs. Inference injects no noise.
+
+Internally NCHW; submodules carry the flax names so convert.py maps a flax
+tree leaf by leaf. The style code flattens the bottleneck in NHWC order, as
+the flax `final_linear` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import ResBlock, conv, leaky_relu, upsample2x
+
+_CHANNELS = {4: 256, 8: 256, 16: 256, 32: 256, 64: 128, 128: 64, 256: 32, 512: 16, 1024: 8}
+
+
+def _chan(size: int, scale: float) -> int:
+    return int(_CHANNELS[size] / scale)
+
+
+class ModulatedConv(nn.Module):
+    """StyleGAN2 modulated conv (input-scale / output-demodulate form)."""
+
+    def __init__(self, in_channels, out_channels, kernel, style_dim, demodulate=True,
+                 upsample=False):
+        super().__init__()
+        self.kernel, self.demodulate, self.upsample = kernel, demodulate, upsample
+        self.modulation = nn.Linear(style_dim, in_channels)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel))
+
+    def forward(self, x, style):
+        s = self.modulation(style)                         # (B, C)
+        if self.upsample:
+            x = upsample2x(x)
+        out = F.conv2d(x * s[:, :, None, None], self.weight, padding=self.kernel // 2)
+        if self.demodulate:
+            w2 = (s * s) @ (self.weight * self.weight).sum((2, 3)).T   # (B, O)
+            out = out * torch.rsqrt(w2 + 1e-8)[:, :, None, None]
+        return out
+
+
+class StyleConv(nn.Module):
+    def __init__(self, in_channels, out_channels, style_dim, upsample=False):
+        super().__init__()
+        self.mod = ModulatedConv(in_channels, out_channels, 3, style_dim, True, upsample)
+        self.noise_weight = nn.Parameter(torch.zeros(()))   # noise is off at inference
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x, style):
+        out = self.mod(x, style) * (2 ** 0.5)
+        return leaky_relu(out + self.bias[None, :, None, None])
+
+
+class ToRGB(nn.Module):
+    def __init__(self, in_channels, out_dim, style_dim, upsample=True):
+        super().__init__()
+        self.upsample = upsample
+        self.mod = ModulatedConv(in_channels, out_dim, 1, style_dim, False, False)
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x, style, skip=None):
+        out = self.mod(x, style) + self.bias[None, :, None, None]
+        if skip is not None:
+            out = out + (upsample2x(skip) if self.upsample else skip)
+        return out
+
+
+class StyleMLP(nn.Module):
+    def __init__(self, style_dim, num_mlp):
+        super().__init__()
+        self.num_mlp = num_mlp
+        for i in range(num_mlp):
+            self.add_module(f"mlp{i}", nn.Linear(style_dim, style_dim))
+
+    def forward(self, x):
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-8)
+        for i in range(self.num_mlp):
+            x = leaky_relu(getattr(self, f"mlp{i}")(x))
+        return x
+
+
+class StyleGAN2GeneratorCSFT(nn.Module):
+    """The `small` generator: one style conv + one plain conv per scale."""
+
+    def __init__(self, out_size, out_dim=3, style_dim=512, num_mlp=8, channel_scale=1.0):
+        super().__init__()
+        cs = channel_scale
+        self.n_levels = int(math.log2(out_size)) - 2
+        self.style_mlp = StyleMLP(style_dim, num_mlp)
+        c4 = _chan(4, cs)
+        self.constant_input = nn.Parameter(torch.empty(1, c4, 4, 4))
+        self.conv1 = StyleConv(c4, c4, style_dim)
+        self.to_rgb1 = ToRGB(c4, out_dim, style_dim, upsample=False)
+        prev = c4
+        for li in range(self.n_levels):
+            ch = _chan(2 ** (li + 3), cs)
+            self.add_module(f"conv_up{li}", StyleConv(prev, ch, style_dim, upsample=True))
+            self.add_module(f"conv_plain{li}", conv(ch, ch, 3))
+            self.add_module(f"to_rgb_up{li}", ToRGB(ch, out_dim, style_dim))
+            prev = ch
+
+    def forward(self, style, conditions):
+        style = self.style_mlp(style)
+        out = self.constant_input.expand(style.shape[0], -1, -1, -1)
+        out = self.conv1(out, style)
+        skip = self.to_rgb1(out, style)
+        for li in range(self.n_levels):
+            out = getattr(self, f"conv_up{li}")(out, style)
+            out = out * conditions[2 * li] + conditions[2 * li + 1]   # SFT
+            out = leaky_relu(getattr(self, f"conv_plain{li}")(out))
+            skip = getattr(self, f"to_rgb_up{li}")(out, style, skip)
+        return skip
+
+
+class StyleUNet(nn.Module):
+    """StyleUNet-small with in_size == out_size. Input/output NCHW."""
+
+    def __init__(self, size, in_dim, out_dim, style_dim=512, num_mlp=8, channel_scale=1.0):
+        super().__init__()
+        cs = channel_scale
+        self.n_levels = int(math.log2(size)) - 2
+        self.first = conv(in_dim, _chan(size, cs), 1)
+        prev = _chan(size, cs)
+        for li in range(self.n_levels):
+            ch = _chan(size >> (li + 1), cs)
+            self.add_module(f"down{li}", ResBlock(prev, ch, "down"))
+            prev = ch
+        c4 = _chan(4, cs)
+        self.final_conv = conv(c4, c4, 3)
+        self.final_linear = nn.Linear(c4 * 16, style_dim)
+        for li in range(self.n_levels):
+            ch = _chan(2 ** (li + 3), cs)
+            self.add_module(f"up{li}", ResBlock(prev, ch, "up"))
+            self.add_module(f"cond_a{li}", conv(ch, 2 * ch, 3))   # scale|shift first convs
+            self.add_module(f"cond_scale{li}b", conv(ch, ch, 3))
+            self.add_module(f"cond_shift{li}b", conv(ch, ch, 3))
+            prev = ch
+        self.generator = StyleGAN2GeneratorCSFT(size, out_dim, style_dim, num_mlp, cs)
+
+    def forward(self, x):
+        feat = leaky_relu(self.first(x))
+        skips = []
+        for li in range(self.n_levels):
+            feat = getattr(self, f"down{li}")(feat)
+            skips.insert(0, feat)
+        feat = leaky_relu(self.final_conv(feat))
+        style = self.final_linear(feat.permute(0, 2, 3, 1).reshape(feat.shape[0], -1))
+
+        conditions = []
+        for li in range(self.n_levels):
+            feat = getattr(self, f"up{li}")(feat + skips[li])
+            ab = getattr(self, f"cond_a{li}")(feat)
+            ch = ab.shape[1] // 2
+            conditions.append(getattr(self, f"cond_scale{li}b")(leaky_relu(ab[:, :ch])))
+            conditions.append(getattr(self, f"cond_shift{li}b")(leaky_relu(ab[:, ch:])))
+        return torch.sigmoid(self.generator(style, conditions))
+
+
+@torch.no_grad()
+def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights with the flax initializers' scales: kernels and
+    dense weights N(0, 1/fan_in), biases 0, modulation biases 1, constant
+    input N(0, 1), noise weights 0."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("modulation.bias"):
+            p.fill_(1.0)
+        elif leaf in ("bias", "noise_weight"):
+            p.zero_()
+        elif leaf == "constant_input":
+            p.copy_(torch.randn(p.shape, generator=generator))
+        else:
+            fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+    return module

@@ -1,0 +1,50 @@
+"""Package rules of the port: no JAX at all, and CUDA unless asked otherwise."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "guava_renderer_tpu")
+PORT_FILES = sorted((ROOT / "guava_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _entry_points():
+    from guava_renderer_tpu_torch.benchscene import make_bench_scene
+    from guava_renderer_tpu_torch.bodymodel.ehm import EhmModel
+    from guava_renderer_tpu_torch.cli.inference import FramePipeline
+    from guava_renderer_tpu_torch.convert import avatar_from_numpy
+
+    return {
+        "make_bench_scene": lambda: make_bench_scene(64, 64, 21, 7),
+        "FramePipeline": lambda: FramePipeline(None, None, None),
+        "EhmModel.build": lambda: EhmModel.build(None, None, None),
+        "avatar_from_numpy": lambda: avatar_from_numpy(None),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_bench_scene", "FramePipeline", "EhmModel.build",
+                                  "avatar_from_numpy"])
+def test_entry_points_default_to_cuda(name, monkeypatch):
+    """Without device=, an entry point asks for CUDA and raises when there
+    is none, instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
