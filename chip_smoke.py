@@ -8,10 +8,16 @@ Phases (one line each, then a JSON line of the kernels, then a last line
   2. build the CUDA kernels from `guava_renderer_tpu_torch/csrc`;
   3. each kernel against its plain PyTorch version at the shapes of the
      full-scale bench scene's frame 0, with times (CUDA events, medians);
-  4. the main path at full width: FramePipeline with StyleUNet-small 512
+  4. the frame path at full width: FramePipeline with StyleUNet-small 512
      renders 20 frames through render_frame and through render_frames,
      with launch counts, fps and a per-stage split;
-  5. the same pipeline on a small scene, on the GPU against the CPU.
+  5. the same pipeline on a small scene, on the GPU against the CPU;
+  6. the creation path at full width: FramePipeline.infer_avatar with the
+     full InfererConfig (ViT-B/14, 518^2 source, 512^2 chart) creates an
+     avatar 5 times, with launch counts, ms/creation, a per-stage split
+     and one frame rendered from the created avatar;
+  7. create then render at 64^2 and narrow widths, on the GPU against the
+     CPU.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -36,18 +42,25 @@ if not torch.cuda.is_available():
 
 from guava_renderer_tpu_torch.avatar.deformer import (  # noqa: E402
     _face_table, deform_avatar, deform_with_vertices, sort_avatar_by_plan)
+from guava_renderer_tpu_torch.avatar.inferer import (  # noqa: E402
+    InfererConfig, UbodyGaussianInferer, assemble_avatar, texel_visibility)
 from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
-from guava_renderer_tpu_torch.benchscene import INVTANFOV, make_bench_scene  # noqa: E402
+from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
+    INVTANFOV, make_bench_scene, make_create_scene)
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
     FramePipeline, _batched_params, _unpack_params)
+from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
 from guava_renderer_tpu_torch.kernels import facegather as k2  # noqa: E402
+from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
+from guava_renderer_tpu_torch.models.layers import harmonic_embedding  # noqa: E402
 from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
 from guava_renderer_tpu_torch.ops.facegather import build_face_sort_plan, compact_faces  # noqa: E402
 from guava_renderer_tpu_torch.ops.gsplat import RasterizeSettings, bin_gaussians, pack_rows  # noqa: E402
-from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians  # noqa: E402
+from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
+from guava_renderer_tpu_torch.ops.meshraster import bin_mesh, rasterize_mesh  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -58,10 +71,25 @@ FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
 # transmittance update and 33 FMAs into the accumulators (~71 more)
 K1_OPS_VISITED = 16
 K1_OPS_CONTRIB = 71
+# K5 operation counts, from csrc/meshraster.cu: an (instance, pixel) pair
+# evaluates two edge functions with a division each (2 x 8), the third
+# weight (2), the depth (5) and five comparisons; the determinant (7 + 2)
+# depends on the triangle alone and is counted once an instance
+K5_OPS_PAIR = 28
+K5_OPS_INSTANCE = 9
 SIZE, UV, BODY_SIDE, HEAD_SIDE = 512, 512, 101, 15
+FEAT = 518
 TILE = 32
+MESH_TILE = 16
 N_FRAMES = 20
+N_CREATIONS = 5
 K1_TOL = 1e-4
+K5_DEPTH_TOL = 1e-6
+SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
+# a frame of an avatar created with random weights is rendered only if it
+# bins at most this many (Gaussian, tile) instances
+INSTANCE_BUDGET = 64_000_000
+CREATE_LIMIT_MS = 1000.0       # the reference's "sub-second" creation
 
 
 def say(phase, msg):
@@ -118,6 +146,58 @@ def k1_pairs(rows, order, ranges, tile):
         T[:k] = torch.where(contrib & ~dies, test_t, T[:k])
         done[:k] |= dies
     return int(visited), int(contrib_n)
+
+
+def frame_instances(gs, cam, tile):
+    """(Gaussian, tile) instances a frame of this Gaussian set would bin."""
+    proj = project_gaussians(gs.xyz[0], gs.scaling[0], gs.rotation[0], gs.opacity[0], cam)
+    x0, y0, x1, y1 = tile_rect(proj.mean2d, proj.radius_bin, cam.width, cam.height, tile)
+    rw, rh = (x1 - x0).long(), (y1 - y0).long()
+    contributing = proj.valid & (proj.alpha >= k1.ALPHA_MIN) & (rw > 0) & (rh > 0)
+    return int(torch.where(contributing, rw * rh, 0).sum())
+
+
+def creation_split(pipe, source, n):
+    """Mean stage times (ms, CUDA events) of n creations, stage by stage as
+    `build_avatar` and `prepare_avatar` run them."""
+    stages = ("ehm", "zbuffer", "encoder", "vertex", "uv", "prune+plan")
+    acc = dict.fromkeys(stages, 0.0)
+    f_idx, f_bary, mask = pipe.uv_tables
+    inferer = pipe.inferer
+    with torch.no_grad():
+        for _ in range(n):
+            body, flame = _unpack_params(_batched_params(source["params"], pipe.device))
+            image = torch.as_tensor(source["image"], dtype=torch.float32,
+                                    device=pipe.device)[None]
+            w2c = torch.as_tensor(source["w2c"], dtype=torch.float32, device=pipe.device)[None]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+            ev[0].record()
+            res = ehm_forward(pipe.ehm, body, flame)
+            ev[1].record()
+            texel_mask, _ = texel_visibility(res.vertices, pipe.faces, w2c, f_idx, mask,
+                                             pipe.image_size, pipe.invtanfov)
+            ev[2].record()
+            feats = inferer.encode(image)
+            ev[3].record()
+            cam_dirs = harmonic_embedding(w2c[:, :3, 2], 4)
+            vertex_gs = inferer.vertex_branch(feats, w2c, res.vertices, cam_dirs)
+            ev[4].record()
+            uv_gs, _ = inferer.uv_branch(image, feats, w2c, res.vertices, texel_mask, f_idx,
+                                         f_bary, pipe.faces, cam_dirs)
+            ev[5].record()
+            pipe.prepare_avatar(assemble_avatar(vertex_gs, uv_gs, pipe.ehm.smplx["v_template"],
+                                                f_idx, f_bary, mask))
+            ev[6].record()
+            ev[6].synchronize()
+            for i, st in enumerate(stages):
+                acc[st] += ev[i].elapsed_time(ev[i + 1]) / n
+    return acc
+
+
+def check_avatar(avatar, where):
+    for field, v in avatar._asdict().items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"{where}: avatar field {field} is not finite")
 
 
 def main():
@@ -197,7 +277,49 @@ def main():
                f"(tol {K1_TOL}); kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms "
                f"(median of {plain_reps}), bound {k1_bound:.4f} ms by {k1_bound_by} "
                f"({k1_ops / 1e9:.2f} GFLOP, {k1_bytes / 1e6:.1f} MB)")
-    del got1, want1, got2, want2
+
+        # K5 on the frame-0 mesh of the bench rig
+        verts0 = res.vertices[0].contiguous()
+        bins = bin_mesh(verts0, sc.faces, sc.cam, MESH_TILE)
+        got5 = k5.mesh_zbuffer(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE, MESH_TILE)
+        want5 = k5.mesh_zbuffer_plain(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE,
+                                      MESH_TILE)
+        torch.cuda.synchronize()
+        hit = want5[0] >= 0
+        if not torch.equal(got5[0], want5[0]):
+            raise SystemExit(f"K5 best instance differs from its plain version at "
+                             f"{int((got5[0] != want5[0]).sum())} pixels")
+        if not torch.equal(torch.isinf(got5[1]), ~hit):
+            raise SystemExit("K5 depth is not +inf exactly on the empty pixels")
+        err5 = float((got5[1][hit] - want5[1][hit]).abs().max())
+        if not err5 <= K5_DEPTH_TOL:
+            raise SystemExit(f"K5 depth disagrees with its plain version: {err5} > "
+                             f"{K5_DEPTH_TOL}")
+        face_k = rasterize_mesh(verts0, sc.faces, sc.cam, MESH_TILE).face_idx
+        face_p = torch.where(hit, bins.inst_fid[want5[0].clamp(min=0).long()], -1)
+        if not torch.equal(face_k, face_p):
+            raise SystemExit("K5 face_idx differs from its plain version")
+        n_inst = bins.inst_fid.shape[0]
+        mesh_counts = bins.ranges[1:] - bins.ranges[:-1]
+        k5_ms = cuda_ms(lambda: k5.mesh_zbuffer(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE,
+                                                MESH_TILE))
+        k5_plain_reps = 3   # the plain z-buffer steps through the busiest tile's run
+        k5_plain_ms = cuda_ms(lambda: k5.mesh_zbuffer_plain(bins.tris, bins.inst_fid, bins.ranges,
+                                                            SIZE, SIZE, MESH_TILE),
+                              reps=k5_plain_reps, warmup=1)
+        k5_pairs = n_inst * MESH_TILE * MESH_TILE
+        k5_bytes = (bins.tris.numel() + n_inst + bins.ranges.numel() + 2 * SIZE * SIZE) * 4
+        k5_ops = k5_pairs * K5_OPS_PAIR + n_inst * K5_OPS_INSTANCE
+        k5_bound = max(k5_bytes / HBM_BYTES_PER_S, k5_ops / FP32_FLOPS) * 1e3
+        k5_bound_by = "operations" if k5_ops / FP32_FLOPS > k5_bytes / HBM_BYTES_PER_S else "bytes"
+        say(3, f"K5 mesh z-buffer: F={sc.faces.shape[0]} instances={n_inst} "
+               f"busiest tile={int(mesh_counts.max())} max tiles a face="
+               f"{int(bins.tiles_per_face.max())} hit pixels={float(hit.float().mean()):.4f}; "
+               f"best instance and face_idx equal to plain, depth max abs {err5:.3g} "
+               f"(tol {K5_DEPTH_TOL}); kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.2f} ms "
+               f"(median of {k5_plain_reps}), bound {k5_bound:.4f} ms by {k5_bound_by} "
+               f"({k5_ops / 1e9:.3f} GFLOP over {k5_pairs} pairs, {k5_bytes / 1e6:.2f} MB)")
+    del got1, want1, got2, want2, got5, want5
 
     # ---- 4. the main path at full width ----
     torch.backends.cudnn.allow_tf32 = False
@@ -322,6 +444,130 @@ def main():
         raise SystemExit(f"64^2 frame: GPU vs CPU max abs {small_err} > 1e-4")
     say(5, f"64^2 frame on the GPU vs the CPU (plain kernels): max abs {small_err:.3g} (tol 1e-4)")
 
+    # ---- 6. the creation path at full width ----
+    csc = make_create_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, device=DEV)
+    cfg = InfererConfig(image_size=SIZE, uvmap_size=UV, invtanfov=INVTANFOV)
+    inferer = init_params_(UbodyGaussianInferer(cfg, csc.smplx.num_vertices),
+                           torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in inferer.parameters())
+    cpipe = FramePipeline(csc.ehm, csc.faces, refiner, inferer=inferer, uv_tables=csc.uv_tables,
+                          image_size=SIZE, invtanfov=INVTANFOV,
+                          settings=RasterizeSettings(tile=TILE), device=DEV)
+    cpipe.infer_avatar(csc.source)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k5.launches = 0
+    create_ms = []
+    for _ in range(N_CREATIONS):
+        t0 = time.perf_counter()
+        created, cextra = cpipe.infer_avatar(csc.source)
+        torch.cuda.synchronize()
+        create_ms.append((time.perf_counter() - t0) * 1e3)
+    create_launches = k5.launches
+    if create_launches != N_CREATIONS or k1.launches or k2.launches:
+        raise SystemExit(f"{N_CREATIONS} creations launched K5 {create_launches} times, "
+                         f"K1 {k1.launches}, K2 {k2.launches}: expected one K5 a creation")
+    create_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_avatar(created, "creation")
+    n_visible = int(cextra["visible_faces"].sum())
+    if n_visible <= 0:
+        raise SystemExit("creation: the z-buffer saw no face")
+    texel_share = float(cextra["texel_mask"].mean())
+    if created.vtx_colors.shape != (1, csc.smplx.num_vertices, 32) \
+            or created.uv_colors.shape[1] % 4096 or cpipe.plan is None:
+        raise SystemExit(f"creation: unexpected avatar shapes {created.uv_colors.shape}")
+    med_create = statistics.median(create_ms)
+    say(6, f"{N_CREATIONS} creations (ViT-B/14 {FEAT}^2 source, {UV}^2 chart, {n_params / 1e6:.1f}M "
+           f"inferer parameters): median {med_create:.2f} ms/creation "
+           f"(all: {', '.join(f'{t:.1f}' for t in create_ms)}; limit {CREATE_LIMIT_MS:.0f}); "
+           f"K5 launches {create_launches}; visible faces {n_visible} of {csc.faces.shape[0]}, "
+           f"visible texel share {texel_share:.4f}; UV rows kept {created.uv_colors.shape[1]} of "
+           f"{UV * UV}; peak mem {create_peak_gb:.2f} GB")
+    if not med_create <= CREATE_LIMIT_MS:
+        raise SystemExit(f"creation takes {med_create:.1f} ms, over the {CREATE_LIMIT_MS:.0f} ms limit")
+    split = creation_split(cpipe, csc.source, 3)
+    say(6, "stage split (ms, mean of 3 creations): "
+           + ", ".join(f"{st} {ms:.3f}" for st, ms in split.items())
+           + f"; sum {sum(split.values()):.2f}")
+
+    # one frame of the created avatar, if random weights left it renderable
+    tgt = targets[0]
+    body, flame = _unpack_params(_batched_params(tgt["params"], DEV))
+    with torch.no_grad():
+        cgs = deform_avatar(created, csc.ehm, csc.faces, body, flame, plan=cpipe.plan,
+                            compact_faces=cpipe.cfaces)
+    n_frame_inst = frame_instances(cgs, sc.cam, TILE)
+    k1.launches = k2.launches = 0
+    if n_frame_inst <= INSTANCE_BUDGET:
+        t0 = time.perf_counter()
+        cframe = cpipe.render_frame(created, tgt)
+        torch.cuda.synchronize()
+        cframe_ms = (time.perf_counter() - t0) * 1e3
+        if (k1.launches, k2.launches) != (1, 1):
+            raise SystemExit(f"frame of the created avatar: launches K1 {k1.launches} K2 {k2.launches}")
+        for k, v in cframe.items():
+            if not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"frame of the created avatar: {k} not finite")
+        say(6, f"a frame of the created avatar bins {n_frame_inst} instances (budget "
+               f"{INSTANCE_BUDGET}): rendered at {SIZE}^2 in {cframe_ms:.1f} ms, finite, "
+               f"K1 and K2 launched once each")
+    else:
+        say(6, f"a frame of the created avatar would bin {n_frame_inst} instances, over the "
+               f"budget of {INSTANCE_BUDGET} (random decoder weights): not rendered")
+    del created, cextra, cgs, inferer, cpipe
+
+    # ---- 7. create then render, small: the GPU path against the CPU path ----
+    scfg = InfererConfig(image_size=64, uvmap_size=64, invtanfov=INVTANFOV, dino_out_dim=8,
+                         uv_out_dim=16, smplx_fea_dim=16, prj_out_dim=16, global_vertex_dim=32,
+                         uv_base_dim=8, style_dim=64, num_mlp=2, channel_scale=8.0, vit_dim=64,
+                         vit_depth=5, vit_heads=4, pyramid_dims=(16, 16, 16, 16))
+    small = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+        ssc = make_create_scene(64, 64, 21, 7, feat_size=70, device=dev)
+        sinf = init_params_(UbodyGaussianInferer(scfg, ssc.smplx.num_vertices),
+                            torch.Generator().manual_seed(2))
+        sref = init_params_(NeuralRefiner(64, style_dim=64, num_mlp=2, channel_scale=4.0),
+                            torch.Generator().manual_seed(1))
+        spipe = FramePipeline(ssc.ehm, ssc.faces, sref, inferer=sinf, uv_tables=ssc.uv_tables,
+                              image_size=64, invtanfov=INVTANFOV,
+                              settings=RasterizeSettings(tile=16), device=dev)
+        full, sextra = spipe.infer_avatar(ssc.source, prune=False)
+        scam = Camera.from_w2c(torch.as_tensor(ssc.source["w2c"], device=dev), 1.0 / INVTANFOV,
+                               64, 64)
+        face_idx = rasterize_mesh(sextra["ehm_result"].vertices[0], ssc.faces, scam).face_idx
+        pruned, _ = spipe.infer_avatar(ssc.source)
+        frame = spipe.render_frame(pruned, targets[3])
+        small[key] = {"avatar": {k: v.cpu() for k, v in full._asdict().items()},
+                      "face_idx": face_idx.cpu(), "n_uv": pruned.uv_colors.shape[1],
+                      "frame": {k: v.cpu() for k, v in frame.items()}}
+    if not torch.equal(small["cpu"]["face_idx"], small["gpu"]["face_idx"]):
+        raise SystemExit("64^2 creation: face_idx on the GPU differs from the CPU's")
+    if int((small["gpu"]["face_idx"] >= 0).sum()) == 0:
+        raise SystemExit("64^2 creation: the z-buffer hit nothing")
+    field_err = {}
+    for k, c in small["cpu"]["avatar"].items():
+        g = small["gpu"]["avatar"][k]
+        if not c.is_floating_point():
+            if not torch.equal(c, g):
+                raise SystemExit(f"64^2 creation: {k} differs")
+        elif k == "uv_scales":     # exp of the decoder's output: held relatively
+            field_err[k] = float(((g - c).abs() / c.abs().clamp(min=1e-12)).max())
+        else:
+            field_err[k] = float((g - c).abs().max())
+    worst = max(field_err, key=field_err.get)
+    if not field_err[worst] <= SMALL_CREATE_TOL:
+        raise SystemExit(f"64^2 creation: {worst} GPU vs CPU {field_err[worst]} > {SMALL_CREATE_TOL}")
+    if small["cpu"]["n_uv"] != small["gpu"]["n_uv"]:
+        raise SystemExit("64^2 creation: pruned UV counts differ")
+    cframe_err = max(float((small["cpu"]["frame"][k] - small["gpu"]["frame"][k]).abs().max())
+                     for k in small["cpu"]["frame"])
+    if not cframe_err <= SMALL_CREATE_TOL:
+        raise SystemExit(f"64^2 create->render: GPU vs CPU max abs {cframe_err} > {SMALL_CREATE_TOL}")
+    say(7, f"64^2 create -> render on the GPU vs the CPU (plain kernels): face_idx equal "
+           f"({int((small['gpu']['face_idx'] >= 0).sum())} hit pixels), avatar fields worst "
+           f"{worst} {field_err[worst]:.3g} (uv_scales relative), frame max abs {cframe_err:.3g} "
+           f"(tol {SMALL_CREATE_TOL})")
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
@@ -333,6 +579,11 @@ def main():
          "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms},
+        {"name": "K5 mesh z-buffer", "route": "cuda",
+         "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
+         "replaces": "guava_renderer_tpu/ops/meshraster.py:39", "launches": create_launches,
+         "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+         "bound_by": k5_bound_by, "library_ms": None},
     ]
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise SystemExit(f"non-finite timing in {kernels}")

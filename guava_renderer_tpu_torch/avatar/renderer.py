@@ -35,7 +35,7 @@ class NeuralRefiner(nn.Module):
                  channel_scale=1.0):
         super().__init__()
         self.refiner = StyleUNet(image_size, in_dim, out_dim, style_dim, num_mlp,
-                                 channel_scale)
+                                 channel_scale, small=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.refiner(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -37,11 +37,55 @@ class BenchScene(NamedTuple):
     uv: int
 
 
+class CreateScene(NamedTuple):
+    """The inputs of one avatar creation on the bench rig."""
+    ehm: EhmModel
+    smplx: object             # ParametricModelData
+    extras: object            # SmplxExtras
+    faces: torch.Tensor       # (F, 3) int64
+    uv_tables: tuple          # (uvmap_f_idx (U, U) i64, uvmap_f_bary (U, U, 3), uvmap_mask (U, U) bool)
+    source: dict              # {"image": (Hf, Wf, 3) f32 numpy, "w2c": (4, 4), "params": zero pose}
+    size: int
+    uv: int
+
+
+def _rig(uv: int, body_side: int, head_side: int):
+    return synthetic_ehm(body_side=body_side, head_side=head_side, uv_size=uv,
+                         n_shape=50, n_exp=20)
+
+
+def make_create_scene(size: int = 512, uv: int = 512, body_side: int = 101,
+                      head_side: int = 15, feat_size: int = 518, device="cuda") -> CreateScene:
+    """The JAX bench's creation inputs: the bench rig, a seeded uniform
+    feat_size^2 source image, the camera at z = 30, zero pose."""
+    dev = resolve_device(device)
+    smplx, flame_m, extras = _rig(uv, body_side, head_side)
+    ehm = EhmModel.build(smplx, flame_m, extras, device=dev)
+    image = np.random.default_rng(0).uniform(0, 1, (1, feat_size, feat_size, 3))
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = 30.0
+    params = {
+        "shape": np.zeros(smplx.n_shape, np.float32),
+        "body_pose": np.zeros((21, 3), np.float32),
+        "flame_shape": np.zeros(smplx.n_shape, np.float32),
+        "flame_exp": np.zeros(smplx.n_exp, np.float32),
+        "flame_jaw": np.zeros(3, np.float32),
+    }
+    uv_tables = (
+        torch.as_tensor(np.asarray(extras.uvmap_f_idx), dtype=torch.int64, device=dev),
+        torch.as_tensor(np.asarray(extras.uvmap_f_bary), dtype=torch.float32, device=dev),
+        torch.as_tensor(np.asarray(extras.uvmap_mask), dtype=torch.bool, device=dev),
+    )
+    return CreateScene(
+        ehm, smplx, extras, torch.as_tensor(smplx.faces, dtype=torch.int64, device=dev),
+        uv_tables, {"image": image[0].astype(np.float32), "w2c": w2c, "params": params},
+        size, uv)
+
+
 def make_bench_scene(size: int = 512, uv: int = 512, body_side: int = 101,
                      head_side: int = 15, device="cuda") -> BenchScene:
     dev = resolve_device(device)
-    smplx, flame_m, extras = synthetic_ehm(
-        body_side=body_side, head_side=head_side, uv_size=uv, n_shape=50, n_exp=20)
+    smplx, flame_m, extras = _rig(uv, body_side, head_side)
     ehm = EhmModel.build(smplx, flame_m, extras, device=dev)
     V = smplx.num_vertices
     N_uv = uv * uv

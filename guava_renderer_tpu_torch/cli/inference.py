@@ -1,6 +1,8 @@
-"""Per-frame rendering of a built avatar (counterpart of the frame half of
+"""One-shot avatar creation and per-frame rendering (counterpart of
 `guava_renderer_tpu/cli/inference.py:FramePipeline`).
 
+Creation is: EHM forward -> mesh z-buffer visibility (kernel K5) ->
+DINO+DPT encoder -> vertex and UV branches -> prune -> face-sort plan.
 A frame is: EHM forward -> deform (planned face gather, kernel K2) ->
 project -> bin -> tile blend (kernel K1) -> StyleUNet-small refiner.
 """
@@ -10,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..avatar.deformer import deform_avatar, sort_avatar_by_plan
+from ..avatar.inferer import UbodyGaussianInferer, build_avatar
 from ..avatar.renderer import GaussianRenderer, NeuralRefiner
 from ..avatar.state import GaussianAvatar, prune_avatar
 from ..bodymodel.ehm import BodyParams, EhmModel, FlameParams
@@ -57,20 +60,30 @@ def _unpack_params(p: dict) -> tuple[BodyParams, FlameParams]:
 
 
 class FramePipeline:
-    """Deform + rasterize + refine frames of an avatar.
+    """Create an avatar from one image; deform + rasterize + refine its frames.
 
-    `ehm`, `faces` (F, 3) and the refiner live on `device`; targets are
-    records {"params": {key: unbatched array}, "w2c": (4, 4)}.
+    `ehm`, `faces` (F, 3), the refiner and, for creation, the inferer with
+    the UV tables `(uvmap_f_idx (U, U), uvmap_f_bary (U, U, 3), uvmap_mask
+    (U, U))` live on `device`. Targets are records {"params": {key:
+    unbatched array}, "w2c": (4, 4)}; a source record adds "image"
+    (Hf, Wf, 3) in [0, 1].
     """
 
     def __init__(self, ehm: EhmModel, faces, refiner: NeuralRefiner, *,
+                 inferer: UbodyGaussianInferer | None = None, uv_tables=None,
                  image_size: int = 512, invtanfov: float = 24.0,
                  settings: RasterizeSettings = RasterizeSettings(tile=32),
                  opacity_threshold: float = 0.001, device="cuda"):
         self.device = resolve_device(device)
+        if (inferer is None) != (uv_tables is None):
+            raise ValueError("creation needs both the inferer and the UV tables")
         self.ehm = ehm
         self.faces = torch.as_tensor(faces, device=self.device)
         self.renderer = GaussianRenderer(refiner, settings).to(self.device).eval()
+        self.inferer = None if inferer is None else inferer.to(self.device).eval()
+        self.uv_tables = None if uv_tables is None else tuple(
+            torch.as_tensor(t, device=self.device) for t in uv_tables)
+        self.invtanfov = invtanfov
         self.image_size = image_size
         self.tanfov = 1.0 / invtanfov
         self.opacity_threshold = opacity_threshold
@@ -90,6 +103,26 @@ class FramePipeline:
             self.cfaces = torch.as_tensor(
                 compact_faces(plan, self.faces.cpu().numpy()), device=self.device)
         return avatar
+
+    @torch.no_grad()
+    def infer_avatar(self, source: dict, prune: bool = True) -> tuple[GaussianAvatar, dict]:
+        """One-shot avatar from a source record. With `prune`, the avatar
+        comes back pruned, padded and planned as `prepare_avatar` leaves it;
+        without, as the network gave it, and frames take the row gather."""
+        if self.inferer is None:
+            raise RuntimeError("this pipeline was built without an inferer")
+        f_idx, f_bary, mask = self.uv_tables
+        body, flame = _unpack_params(_batched_params(source["params"], self.device))
+        image = torch.as_tensor(source["image"], dtype=torch.float32, device=self.device)[None]
+        w2c = torch.as_tensor(source["w2c"], dtype=torch.float32, device=self.device)[None]
+        avatar, extra = build_avatar(
+            self.inferer, self.ehm, self.faces, f_idx, f_bary, mask, image, w2c, body, flame,
+            image_size=self.image_size, invtanfov=self.invtanfov)
+        if prune:
+            avatar = self.prepare_avatar(avatar)
+        else:
+            self.plan = self.cfaces = None
+        return avatar, extra
 
     @torch.no_grad()
     def render_frame(self, avatar: GaussianAvatar, target: dict) -> dict:

@@ -6,8 +6,8 @@ NamedTuple fields by name, so this module needs nothing of JAX.
 
 A released GUAVA `.pt` reaches the port through the JAX package's
 `train/weights.py:convert_guava_state` followed by
-`refiner_state_dict_from_flax`: the port's refiner modules carry the flax
-names, so the mapping is a per-leaf transpose.
+`refiner_state_dict_from_flax` / `inferer_state_dict_from_flax`: the port's
+modules carry the flax names, so the mapping is a per-leaf transpose.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .avatar.inferer import InfererConfig, UbodyGaussianInferer
 from .avatar.state import GaussianAvatar
 from .bodymodel.ehm import EhmModel
 from .core.cameras import Camera
@@ -72,30 +73,72 @@ def plan_from_numpy(plan) -> FaceSortPlan:
     )
 
 
-def refiner_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """Flax `NeuralRefiner` variables (or their "params" subtree) -> the
-    state dict of the port's `avatar.renderer.NeuralRefiner`.
+# flax ConvTranspose modules: their kernels are (kh, kw, I, O) and unflipped
+_CONV_TRANSPOSE = ("resize0", "resize1")
 
-    conv kernels (kh, kw, I, O) and ModulatedConv weights (k, k, I, O) ->
-    (O, I, kh, kw); dense kernels (I, O) -> (O, I); constant_input NHWC -> NCHW.
-    """
+
+def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A flax "params" tree -> a state dict under the same dotted names.
+
+    Per leaf: conv kernels (kh, kw, I, O) and ModulatedConv weights
+    (k, k, I, O) -> (O, I, kh, kw); ConvTranspose kernels -> (I, O, kh, kw),
+    flipped spatially (flax does not flip, `nn.ConvTranspose2d` does); dense
+    kernels (I, O) -> (O, I); LayerNorm `scale` -> `weight`;
+    `constant_input` NHWC -> NCHW; `uv_base_feature` (U, U, C) -> (C, U, U).
+    Everything else (biases, LayerScale gammas, tokens, embeddings, the
+    vertex base feature) is carried as it is."""
     if "params" in params:
         params = params["params"]
     out = {}
 
-    def walk(tree, prefix):
+    def walk(tree, prefix, owner):
         for name, v in tree.items():
             if isinstance(v, Mapping):
-                walk(v, f"{prefix}{name}.")
+                walk(v, f"{prefix}{name}.", name)
                 continue
             a = np.asarray(v, np.float32)
-            if name in ("kernel", "weight") and a.ndim == 4:
+            if name == "kernel" and a.ndim == 4 and owner in _CONV_TRANSPOSE:
+                name, a = "weight", a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif name in ("kernel", "weight") and a.ndim == 4:
                 name, a = "weight", a.transpose(3, 2, 0, 1)
             elif name == "kernel" and a.ndim == 2:
                 name, a = "weight", a.T
+            elif name == "scale":
+                name = "weight"
             elif name == "constant_input":
                 a = a.transpose(0, 3, 1, 2)
-            out[prefix + name] = torch.tensor(a)
+            elif name == "uv_base_feature":
+                a = a.transpose(2, 0, 1)
+            out[prefix + name] = torch.tensor(np.array(a, order="C"))
 
-    walk(params, "")
+    walk(params, "", "")
     return out
+
+
+def refiner_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax `NeuralRefiner` variables (or their "params" subtree) -> the
+    state dict of the port's `avatar.renderer.NeuralRefiner`."""
+    return state_dict_from_flax(params)
+
+
+def inferer_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax `UbodyGaussianInferer` variables (or their "params" subtree) ->
+    the state dict of the port's `avatar.inferer.UbodyGaussianInferer`."""
+    return state_dict_from_flax(params)
+
+
+def inferer_from_flax(params: Mapping, cfg: InfererConfig, num_vertices: int,
+                      device="cuda") -> UbodyGaussianInferer:
+    """The port's inferer carrying a flax tree's weights, in eval mode on
+    `device`. Raises unless every flax leaf lands on a parameter of the same
+    shape and every parameter is filled."""
+    dev = resolve_device(device)
+    inferer = UbodyGaussianInferer(cfg, num_vertices)
+    sd = inferer_state_dict_from_flax(params)
+    want = inferer.state_dict()
+    unused, unfilled = sorted(set(sd) - set(want)), sorted(set(want) - set(sd))
+    if unused or unfilled:
+        raise ValueError(f"flax leaves without a parameter: {unused}; "
+                         f"parameters without a flax leaf: {unfilled}")
+    inferer.load_state_dict(sd)        # strict: also checks every shape
+    return inferer.to(dev).eval()

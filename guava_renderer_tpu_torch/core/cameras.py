@@ -60,5 +60,23 @@ class Camera:
         return self.proj_matrix() @ self.view_matrix()
 
 
+def world_to_cam(cam: Camera, pts: torch.Tensor) -> torch.Tensor:
+    """(..., 3) world -> camera space."""
+    return pts @ cam.R.T + cam.t
+
+
+def project_points(cam: Camera, pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """World points -> (pixel xy (..., 2), camera-space depth (...,)), by the
+    rasterizer's ndc->pixel convention."""
+    z = world_to_cam(cam, pts)[..., 2]
+    full = cam.full_proj_matrix()
+    hom = pts @ full[:3, :3].T + full[:3, 3]
+    w = pts @ full[3, :3] + full[3, 3]
+    ndc = hom[..., :2] / (w[..., None] + 1e-7)
+    px = ndc2pix(ndc[..., 0], cam.width)
+    py = ndc2pix(ndc[..., 1], cam.height)
+    return torch.stack([px, py], dim=-1), z
+
+
 def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5

@@ -18,12 +18,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("blend.cu", "facegather.cu")
+SOURCES = ("blend.cu", "facegather.cu", "meshraster.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# per-source additions: the z-buffer must round as its plain version does
+# (no fused multiply-add), or a shared edge changes owner
+SOURCE_FLAGS = {"meshraster.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +36,8 @@ SIGNATURES = {
     "guava_blend_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # table, ids, out, n, stream
     "guava_face_gather": (_P, _P, _P, _I, _P),
+    # tris, inst_fid, ranges, best, depth, height, width, tile, stream
+    "guava_mesh_zbuffer": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -54,6 +59,7 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(name, ())).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -85,7 +91,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{Path(s).stem}_{os.getpid()}.o" for s in SOURCES]
     build_log = _run_all([
-        [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+        [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", str(CSRC / s), "-o", str(o)]
         for s, o in zip(SOURCES, objs)
     ])
     tmp = lib_path.with_suffix(f".tmp{os.getpid()}")

@@ -1,11 +1,13 @@
-"""StyleUNet-small: a UNet encoder + StyleGAN2-CSFT generator (counterpart
-of `guava_renderer_tpu/models/styleunet.py`, StyleUNet with small=True).
+"""StyleUNet: a UNet encoder + StyleGAN2-CSFT generator (counterpart of
+`guava_renderer_tpu/models/styleunet.py:StyleUNet`, in_size == out_size).
 
-A bilinear ResBlock UNet produces a style code (4x4 bottleneck -> linear)
-and per-scale SFT scale/shift conditions; a StyleGAN2 generator with weight
-(de)modulation consumes them, with one style conv and one plain conv per
-scale. Modulation scales the inputs, one shared conv runs, and
-demodulation scales the outputs. Inference injects no noise.
+A bilinear ResBlock UNet produces a style code (4x4 bottleneck -> linear,
+optionally fused with an extra style vector) and per-scale SFT scale/shift
+conditions; a StyleGAN2 generator with weight (de)modulation consumes
+them, with two style convs per scale, or one style conv and one plain conv
+in the `small` variant (the refiner). Modulation scales the inputs, one
+shared conv runs, and demodulation scales the outputs. Inference injects
+no noise.
 
 Internally NCHW; submodules carry the flax names so convert.py maps a flax
 tree leaf by leaf. The style code flattens the bottleneck in NHWC order, as
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ResBlock, conv, leaky_relu, upsample2x
+from .layers import ResBlock, conv, leaky_relu, resize_bilinear, upsample2x
 
 _CHANNELS = {4: 256, 8: 256, 16: 256, 32: 256, 64: 128, 128: 64, 256: 32, 512: 16, 1024: 8}
 
@@ -91,11 +93,14 @@ class StyleMLP(nn.Module):
 
 
 class StyleGAN2GeneratorCSFT(nn.Module):
-    """The `small` generator: one style conv + one plain conv per scale."""
+    """Per scale: an upsampling style conv, the SFT, then a second style
+    conv (`conv_same{li}`) or, when `small`, a plain conv (`conv_plain{li}`)."""
 
-    def __init__(self, out_size, out_dim=3, style_dim=512, num_mlp=8, channel_scale=1.0):
+    def __init__(self, out_size, out_dim=3, style_dim=512, num_mlp=8, channel_scale=1.0,
+                 small=False):
         super().__init__()
         cs = channel_scale
+        self.small = small
         self.n_levels = int(math.log2(out_size)) - 2
         self.style_mlp = StyleMLP(style_dim, num_mlp)
         c4 = _chan(4, cs)
@@ -106,7 +111,10 @@ class StyleGAN2GeneratorCSFT(nn.Module):
         for li in range(self.n_levels):
             ch = _chan(2 ** (li + 3), cs)
             self.add_module(f"conv_up{li}", StyleConv(prev, ch, style_dim, upsample=True))
-            self.add_module(f"conv_plain{li}", conv(ch, ch, 3))
+            if small:
+                self.add_module(f"conv_plain{li}", conv(ch, ch, 3))
+            else:
+                self.add_module(f"conv_same{li}", StyleConv(ch, ch, style_dim))
             self.add_module(f"to_rgb_up{li}", ToRGB(ch, out_dim, style_dim))
             prev = ch
 
@@ -118,17 +126,24 @@ class StyleGAN2GeneratorCSFT(nn.Module):
         for li in range(self.n_levels):
             out = getattr(self, f"conv_up{li}")(out, style)
             out = out * conditions[2 * li] + conditions[2 * li + 1]   # SFT
-            out = leaky_relu(getattr(self, f"conv_plain{li}")(out))
+            if self.small:
+                out = leaky_relu(getattr(self, f"conv_plain{li}")(out))
+            else:
+                out = getattr(self, f"conv_same{li}")(out, style)
             skip = getattr(self, f"to_rgb_up{li}")(out, style, skip)
         return skip
 
 
 class StyleUNet(nn.Module):
-    """StyleUNet-small with in_size == out_size. Input/output NCHW."""
+    """StyleUNet with in_size == out_size. Input/output NCHW; an input
+    smaller than `size` is resized up first. With `extra_style_dim > 0`,
+    `forward` fuses an extra style vector into the style code."""
 
-    def __init__(self, size, in_dim, out_dim, style_dim=512, num_mlp=8, channel_scale=1.0):
+    def __init__(self, size, in_dim, out_dim, style_dim=512, num_mlp=8, channel_scale=1.0,
+                 small=False, activation=True, extra_style_dim=-1):
         super().__init__()
         cs = channel_scale
+        self.size, self.activation = size, activation
         self.n_levels = int(math.log2(size)) - 2
         self.first = conv(in_dim, _chan(size, cs), 1)
         prev = _chan(size, cs)
@@ -139,6 +154,9 @@ class StyleUNet(nn.Module):
         c4 = _chan(4, cs)
         self.final_conv = conv(c4, c4, 3)
         self.final_linear = nn.Linear(c4 * 16, style_dim)
+        if extra_style_dim > 0:
+            self.style_fuse0 = nn.Linear(style_dim + extra_style_dim, style_dim)
+            self.style_fuse1 = nn.Linear(style_dim, style_dim)
         for li in range(self.n_levels):
             ch = _chan(2 ** (li + 3), cs)
             self.add_module(f"up{li}", ResBlock(prev, ch, "up"))
@@ -146,9 +164,11 @@ class StyleUNet(nn.Module):
             self.add_module(f"cond_scale{li}b", conv(ch, ch, 3))
             self.add_module(f"cond_shift{li}b", conv(ch, ch, 3))
             prev = ch
-        self.generator = StyleGAN2GeneratorCSFT(size, out_dim, style_dim, num_mlp, cs)
+        self.generator = StyleGAN2GeneratorCSFT(size, out_dim, style_dim, num_mlp, cs, small)
 
-    def forward(self, x):
+    def forward(self, x, extra_style=None):
+        if x.shape[-2] < self.size:
+            x = resize_bilinear(x, (self.size, self.size))
         feat = leaky_relu(self.first(x))
         skips = []
         for li in range(self.n_levels):
@@ -156,6 +176,9 @@ class StyleUNet(nn.Module):
             skips.insert(0, feat)
         feat = leaky_relu(self.final_conv(feat))
         style = self.final_linear(feat.permute(0, 2, 3, 1).reshape(feat.shape[0], -1))
+        if extra_style is not None and hasattr(self, "style_fuse0"):
+            h = leaky_relu(self.style_fuse0(torch.cat([style, extra_style], dim=-1)))
+            style = self.style_fuse1(h)
 
         conditions = []
         for li in range(self.n_levels):
@@ -164,21 +187,28 @@ class StyleUNet(nn.Module):
             ch = ab.shape[1] // 2
             conditions.append(getattr(self, f"cond_scale{li}b")(leaky_relu(ab[:, :ch])))
             conditions.append(getattr(self, f"cond_shift{li}b")(leaky_relu(ab[:, ch:])))
-        return torch.sigmoid(self.generator(style, conditions))
+        image = self.generator(style, conditions)
+        return torch.sigmoid(image) if self.activation else image
 
 
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the flax initializers' scales: kernels and
     dense weights N(0, 1/fan_in), biases 0, modulation biases 1, constant
-    input N(0, 1), noise weights 0."""
+    input and the inferer's base features N(0, 1), noise weights 0;
+    LayerNorm scales and LayerScale gammas 1, position embeddings
+    N(0, 0.02), the CLS token 0."""
+    norms = {n for n, m in module.named_modules() if isinstance(m, nn.LayerNorm)}
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("modulation.bias"):
+        owner, _, leaf = name.rpartition(".")
+        if name.endswith("modulation.bias") or leaf == "gamma" or \
+                (owner in norms and leaf == "weight"):
             p.fill_(1.0)
-        elif leaf in ("bias", "noise_weight"):
+        elif leaf in ("bias", "noise_weight", "cls_token"):
             p.zero_()
-        elif leaf == "constant_input":
+        elif leaf == "pos_embed":
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        elif leaf in ("constant_input", "vertex_base_feature", "uv_base_feature"):
             p.copy_(torch.randn(p.shape, generator=generator))
         else:
             fan_in = p[0].numel()

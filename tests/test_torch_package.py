@@ -27,21 +27,26 @@ def test_port_imports_no_jax(path):
 
 
 def _entry_points():
-    from guava_renderer_tpu_torch.benchscene import make_bench_scene
+    from guava_renderer_tpu_torch.benchscene import make_bench_scene, make_create_scene
     from guava_renderer_tpu_torch.bodymodel.ehm import EhmModel
     from guava_renderer_tpu_torch.cli.inference import FramePipeline
-    from guava_renderer_tpu_torch.convert import avatar_from_numpy
+    from guava_renderer_tpu_torch.convert import avatar_from_numpy, inferer_from_flax
 
     return {
         "make_bench_scene": lambda: make_bench_scene(64, 64, 21, 7),
+        "make_create_scene": lambda: make_create_scene(32, 16, 12, 6, feat_size=28),
         "FramePipeline": lambda: FramePipeline(None, None, None),
+        "FramePipeline with an inferer": lambda: FramePipeline(
+            None, None, None, inferer=torch.nn.Identity(), uv_tables=(None, None, None)),
         "EhmModel.build": lambda: EhmModel.build(None, None, None),
         "avatar_from_numpy": lambda: avatar_from_numpy(None),
+        "inferer_from_flax": lambda: inferer_from_flax({}, None, 0),
     }
 
 
-@pytest.mark.parametrize("name", ["make_bench_scene", "FramePipeline", "EhmModel.build",
-                                  "avatar_from_numpy"])
+@pytest.mark.parametrize("name", ["make_bench_scene", "make_create_scene", "FramePipeline",
+                                  "FramePipeline with an inferer", "EhmModel.build",
+                                  "avatar_from_numpy", "inferer_from_flax"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""
