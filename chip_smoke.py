@@ -6,8 +6,9 @@ Phases (one line each, then a JSON line of the kernels, then a last line
 {"ok": true, "device": {...}}); any failure exits non-zero before that line:
   1. the device, and `nvidia-smi`'s name and power limit;
   2. build the CUDA kernels from `guava_renderer_tpu_torch/csrc`;
-  3. each kernel against its plain PyTorch version at the shapes of the
-     full-scale bench scene's frame 0, with times (CUDA events, medians);
+  3. each of the five kernels against its plain PyTorch version at the
+     shapes of the full-scale bench scene's frame 0, with times (CUDA
+     events, medians);
   4. the frame path at full width: FramePipeline with StyleUNet-small 512
      renders 20 frames through render_frame and through render_frames,
      with launch counts, fps and a per-stage split;
@@ -17,15 +18,25 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      avatar 5 times, with launch counts, ms/creation, a per-stage split
      and one frame rendered from the created avatar;
   7. create then render at 64^2 and narrow widths, on the GPU against the
-     CPU.
+     CPU;
+  8. the training step at full width: 3 warm-up and 5 timed steps of batch 1
+     through `run_training` (creation, deform, 32-channel rasterization
+     forward and backward, refiner, LPIPS loss, Adam over the inferer and
+     the refiner), a checkpoint restored, one accumulated step of batch 2,
+     a per-stage split and a profiler window over one step;
+  9. a 32^2 training step of batch 2, on the GPU against the CPU;
+ 10. the gradient of the planned deform path (face gather forward and
+     backward kernels) against the row-gather path's at the bench avatar.
 Needs a CUDA device; run from the repository root.
 """
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -43,13 +54,14 @@ if not torch.cuda.is_available():
 from guava_renderer_tpu_torch.avatar.deformer import (  # noqa: E402
     _face_table, deform_avatar, deform_with_vertices, sort_avatar_by_plan)
 from guava_renderer_tpu_torch.avatar.inferer import (  # noqa: E402
-    InfererConfig, UbodyGaussianInferer, assemble_avatar, texel_visibility)
+    InfererConfig, UbodyGaussianInferer, assemble_avatar, build_avatar, texel_visibility)
 from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
 from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
-    INVTANFOV, make_bench_scene, make_create_scene)
+    INVTANFOV, make_bench_scene, make_create_scene, make_train_scene)
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
     FramePipeline, _batched_params, _unpack_params)
+from guava_renderer_tpu_torch.cli.trainer_loop import run_training  # noqa: E402
 from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
@@ -58,9 +70,18 @@ from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
 from guava_renderer_tpu_torch.models.layers import harmonic_embedding  # noqa: E402
 from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
 from guava_renderer_tpu_torch.ops.facegather import build_face_sort_plan, compact_faces  # noqa: E402
-from guava_renderer_tpu_torch.ops.gsplat import RasterizeSettings, bin_gaussians, pack_rows  # noqa: E402
+from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
+    RasterizeSettings, bin_gaussians, pack_rows, rasterize)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import bin_mesh, rasterize_mesh  # noqa: E402
+from guava_renderer_tpu_torch.testing import make_micro_pipeline  # noqa: E402
+from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
+from guava_renderer_tpu_torch.train.losses import LossConfig, OptimizationLoss  # noqa: E402
+from guava_renderer_tpu_torch.train.lpips import LPIPS, init_lpips_  # noqa: E402
+from guava_renderer_tpu_torch.train.pipeline import (  # noqa: E402
+    PipelineStatics, make_loss_fn, make_models)
+from guava_renderer_tpu_torch.train.trainstep import (  # noqa: E402
+    make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -71,6 +92,13 @@ FP32_FLOPS = 67e12             # H100 SXM, FP32 outside the tensor cores
 # transmittance update and 33 FMAs into the accumulators (~71 more)
 K1_OPS_VISITED = 16
 K1_OPS_CONTRIB = 71
+# K3 operation counts per pair, from csrc/blend_bwd.cu: a visited pair costs
+# what the forward's does; a contributing pair adds the 33-term dot product
+# (66), w, the prefix and d alpha (12), the geometry chain (30), the 33
+# colour gradients (33) and one addition per value into the per-Gaussian
+# sums (39)
+K3_OPS_VISITED = 16
+K3_OPS_CONTRIB = 180
 # K5 operation counts, from csrc/meshraster.cu: an (instance, pixel) pair
 # evaluates two edge functions with a division each (2 x 8), the third
 # weight (2), the depth (5) and five comparisons; the determinant (7 + 2)
@@ -84,6 +112,26 @@ MESH_TILE = 16
 N_FRAMES = 20
 N_CREATIONS = 5
 K1_TOL = 1e-4
+# K3 against its plain version, per row column, as a share of the column's
+# largest gradient: both sum float32 contributions with atomic adds, whose
+# order changes from run to run, and a pixel within an ulp of a 1/255 or 1e-4
+# threshold may be decided differently by expf and torch.exp
+K3_TOL = 1e-3
+# K4 against its plain version on the card (index_add_, atomic adds in any
+# order): |difference| <= K4_TOL * sum |drows| over the face's segment
+K4_TOL = 1e-6
+N_WARMUP_STEPS = 3
+N_TIMED_STEPS = 5
+TRAIN_LR = 1e-4                # configs/train/ubody_512.yaml
+# kernels N(0, (gain / sqrt(fan_in))^2): at gain 1 the full-depth model starts
+# with UV offsets of 1e4 and its second step overflows float32 (init_params_)
+TRAIN_INIT_GAIN = 0.5
+MICRO_LOSS_RTOL = 1e-4
+# 32^2 step, GPU against CPU, per parameter: rtol and atol as a share of the
+# gradient's largest entry (cuDNN's and the CPU's convolutions sum in other
+# orders, and the blend backward adds atomically)
+MICRO_GRAD_RTOL, MICRO_GRAD_ATOL = 2e-3, 1e-4
+PLANNED_GRAD_TOL = 1e-4        # planned against row-gather vertex gradient, share of its max
 K5_DEPTH_TOL = 1e-6
 SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
 # a frame of an avatar created with random weights is rendered only if it
@@ -200,6 +248,91 @@ def check_avatar(avatar, where):
             raise SystemExit(f"{where}: avatar field {field} is not finite")
 
 
+def train_setup(scene, cfg, lr):
+    """Random-weight models, LPIPS, statics, train state and loss function
+    for a training scene at the widths of `cfg` (seed 0)."""
+    gen = torch.Generator().manual_seed(0)
+    inferer, renderer = make_models(cfg, scene.smplx.num_vertices,
+                                    refiner_channel_scale=cfg.channel_scale,
+                                    raster_settings=RasterizeSettings(tile=TILE))
+    init_params_(inferer, gen, gain=TRAIN_INIT_GAIN)
+    init_params_(renderer, gen, gain=TRAIN_INIT_GAIN)
+    lpips = init_lpips_(LPIPS("alex"), gen).to(DEV)
+    f_idx, f_bary, mask = scene.uv_tables
+    statics = PipelineStatics(
+        ehm=scene.ehm, faces=scene.faces, uvmap_f_idx=f_idx, uvmap_f_bary=f_bary,
+        uvmap_mask=mask, inferer=inferer.to(DEV), renderer=renderer.to(DEV),
+        loss_cfg=LossConfig(), image_size=cfg.image_size, invtanfov=cfg.invtanfov)
+    model = torch.nn.ModuleDict({"inferer": statics.inferer, "renderer": statics.renderer})
+    state = make_train_state(model, learning_rate=lr)
+    return statics, lpips, state, make_loss_fn(statics, lpips)
+
+
+def train_split(statics, lpips, state, batch, n):
+    """Mean stage times (ms, CUDA events) of n batch-1 training steps taken
+    stage by stage as `forward_pipeline`, `make_loss_fn` and
+    `make_train_step` run them, and the instances the step's frame binned."""
+    stages = ("creation", "deform+raster", "refiner", "loss", "backward", "optimizer")
+    acc = dict.fromkeys(stages, 0.0)
+    opt_loss = OptimizationLoss(statics.loss_cfg, lpips)
+    src, tgt = batch["source"], batch["target"]
+    instances = 0
+    for _ in range(n):
+        state.optimizer.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        body_s, flame_s = _unpack_params(src["params"])
+        avatar, _ = build_avatar(
+            statics.inferer, statics.ehm, statics.faces, statics.uvmap_f_idx,
+            statics.uvmap_f_bary, statics.uvmap_mask, src["image"], src["w2c"], body_s, flame_s,
+            image_size=statics.image_size, invtanfov=statics.invtanfov)
+        ev[1].record()
+        body_t, flame_t = _unpack_params(tgt["params"])
+        gs = deform_avatar(avatar, statics.ehm, statics.faces, body_t, flame_t)
+        cam = Camera.from_w2c(tgt["w2c"][0], 1.0 / statics.invtanfov, statics.image_size,
+                              statics.image_size)
+        renderer = statics.renderer
+        bg = torch.zeros(32, device=DEV)
+        feat, _, _ = rasterize(gs.xyz[0], gs.colors[0], gs.opacity[0], gs.scaling[0],
+                               gs.rotation[0], cam, bg, renderer.settings, channels_first=False)
+        feat = feat[None]
+        ev[2].record()
+        renders = renderer.neural_refiner(feat)
+        ev[3].record()
+        total, _ = opt_loss(renders, feat[..., :3], tgt["image"], tgt["mask"], tgt["boxes"],
+                            avatar.uv_local_xyz, avatar.uv_scales, state.iteration)
+        ev[4].record()
+        total.backward()
+        ev[5].record()
+        scrub_nan_grads(state.model)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.iteration += 1
+        ev[6].record()
+        ev[6].synchronize()
+        for i, st in enumerate(stages):
+            acc[st] += ev[i].elapsed_time(ev[i + 1]) / n
+        with torch.no_grad():
+            instances = frame_instances(gs, cam, TILE)
+    return acc, instances
+
+
+def profile_window(fn, n):
+    """torch.profiler over n calls of fn -> (device busy ms a call, device
+    kernels a call, the ten longest device operations as text)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in seen) / 1e3 / n
+    top = sorted(seen, key=lambda e: -e.self_device_time_total)[:10]
+    text = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x{e.count // n}"
+                     for e in top)
+    return busy_ms, sum(e.count for e in seen) / n, text
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -230,7 +363,7 @@ def main():
     dplan = plan.to(DEV)
     cfaces = torch.as_tensor(compact_faces(plan, sc.smplx.faces), dtype=torch.int64, device=DEV)
     with torch.no_grad():
-        res = ehm_forward(sc.ehm, sc.base_body, sc.base_flame)
+        res = res0 = ehm_forward(sc.ehm, sc.base_body, sc.base_flame)
         tri = res.vertices[0, cfaces.reshape(-1)].reshape(-1, 3, 3)
         table = _face_table(tri).contiguous()
         ids = dplan.compact_ids
@@ -249,6 +382,36 @@ def main():
         say(3, f"K2 face gather: N={n_tex} Fc={n_faces}, equal to plain (max abs {err2}); "
                f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, table[ids].T {k2_lib_ms:.4f} ms, "
                f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB)")
+
+        # K4 (the gather's backward) on the same plan: a seeded (16, N) gradient
+        seg = dplan.segment_starts
+        drows = torch.randn((16, n_tex), generator=torch.Generator().manual_seed(4)).to(DEV)
+        got4 = k2.face_gather_bwd(drows, ids, seg, n_faces)
+        want4 = k2.face_gather_bwd_plain(drows, ids, n_faces)
+        want4_cpu = k2.face_gather_bwd_plain(drows.cpu(), ids.cpu(), n_faces).to(DEV)
+        room4 = K4_TOL * k2.face_gather_bwd_plain(drows.abs(), ids, n_faces)
+        torch.cuda.synchronize()
+        err4 = float((got4 - want4).abs().max())
+        if not bool(((got4 - want4).abs() <= room4).all()):
+            raise SystemExit(f"K4 disagrees with its plain version: max abs {err4}, beyond "
+                             f"{K4_TOL} of a segment's sum of |drows|")
+        if not bool(((got4 - want4_cpu).abs() <= room4).all()):
+            raise SystemExit("K4 disagrees with its plain version run on the CPU")
+        k4_equal_cpu = torch.equal(got4, want4_cpu)
+        k4_ms = cuda_ms(lambda: k2.face_gather_bwd(drows, ids, seg, n_faces))
+        k4_plain_ms = cuda_ms(lambda: k2.face_gather_bwd_plain(drows, ids, n_faces))
+        k4_lib_ms = cuda_ms(lambda: torch.zeros((n_faces, 16), device=DEV).index_add_(
+            0, ids.long(), drows.T))
+        k4_bytes = 16 * n_tex * 4 + n_tex * 4 + n_faces * 16 * 4
+        k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
+        seg_len = seg[1:] - seg[:-1]
+        say(3, f"K4 face gather backward: N={n_tex} Fc={n_faces}, longest segment "
+               f"{int(seg_len.max())} texels (the dummy face's {int(seg_len[-1])}); max abs vs "
+               f"plain on the card {err4:.3g} (held to {K4_TOL} of a segment's sum of |drows|: "
+               f"index_add_ adds atomically in any order), bit-equal to plain on the CPU "
+               f"(sequential, ascending texels): {k4_equal_cpu}; kernel {k4_ms:.4f} ms, plain "
+               f"{k4_plain_ms:.4f} ms, zeros.index_add_ {k4_lib_ms:.4f} ms, bound "
+               f"{k4_bound:.4f} ms ({k4_bytes / 1e6:.2f} MB)")
 
         gs = deform_avatar(avatar, sc.ehm, sc.faces, sc.base_body, sc.base_flame,
                            plan=dplan, compact_faces=cfaces)
@@ -277,6 +440,53 @@ def main():
                f"(tol {K1_TOL}); kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms "
                f"(median of {plain_reps}), bound {k1_bound:.4f} ms by {k1_bound_by} "
                f"({k1_ops / 1e9:.2f} GFLOP, {k1_bytes / 1e6:.1f} MB)")
+
+        # K3 (the blend's backward) on the same frame: seeded output gradients at
+        # the scale a mean over the image's pixels gives them
+        gen3 = torch.Generator().manual_seed(3)
+        g_color = (torch.randn((SIZE, SIZE, 32), generator=gen3) / (SIZE * SIZE)).to(DEV)
+        g_invd = (torch.randn((SIZE, SIZE, 1), generator=gen3) / (SIZE * SIZE)).to(DEV)
+        color1, invd1, final_t1 = got1
+
+        def k3_run():
+            return k1.blend_bwd(rows, order, ranges, bg, color1, invd1, final_t1, g_color,
+                                g_invd, TILE)
+
+        got3 = k3_run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want3 = k1.blend_bwd_plain(rows, order, ranges, bg, color1, invd1, final_t1, g_color,
+                                   g_invd, TILE)
+        torch.cuda.synchronize()
+        k3_plain_ms = (time.perf_counter() - t0) * 1e3
+        col_max = want3.abs().amax(0)
+        col_err = (got3 - want3).abs().amax(0)
+        used = col_max > 0
+        rel3 = float((col_err[used] / col_max[used]).max())
+        err3 = float(col_err.max())
+        big = want3.abs() > 1e-3 * col_max
+        rel3_entry = float(((got3 - want3).abs()[big] / want3.abs()[big]).max())
+        if bool(col_err[~used].any()) or not rel3 <= K3_TOL:
+            worst = int((col_err / col_max.clamp(min=1e-30)).argmax())
+            raise SystemExit(f"K3 disagrees with its plain version: column {worst} is off by "
+                             f"{rel3} of its largest gradient (tol {K3_TOL})")
+        if not bool(torch.isfinite(got3).all()):
+            raise SystemExit("K3 produced a non-finite gradient")
+        k3_ms = cuda_ms(k3_run)
+        k3_bytes = (2 * P * k1.ROW * 4 + N * 4 + ranges.numel() * 4 + 32 * 4
+                    + SIZE * SIZE * (33 + 1 + 33) * 4)
+        k3_ops = visited * K3_OPS_VISITED + contrib * K3_OPS_CONTRIB
+        k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS) * 1e3
+        k3_bound_by = "operations" if k3_ops / FP32_FLOPS > k3_bytes / HBM_BYTES_PER_S else "bytes"
+        say(3, f"K3 tile blend backward: the same frame ({SIZE}^2, tile {TILE}, instances={N}); "
+               f"per row column, max abs vs plain over the column's largest gradient: worst "
+               f"{rel3:.3g} (tol {K3_TOL}: atomic adds in any order, and expf against "
+               f"torch.exp at the 1/255 and 1e-4 thresholds), max abs {err3:.3g}, max relative "
+               f"on entries over 1e-3 of their column's largest {rel3_entry:.3g}; kernel "
+               f"{k3_ms:.4f} ms = {k3_ms / k1_ms:.1f} x K1, plain {k3_plain_ms:.2f} ms (one "
+               f"call), bound {k3_bound:.4f} ms by {k3_bound_by} ({k3_ops / 1e9:.2f} GFLOP, "
+               f"{k3_bytes / 1e6:.1f} MB)")
+        del want3, got3, g_color, g_invd
 
         # K5 on the frame-0 mesh of the bench rig
         verts0 = res.vertices[0].contiguous()
@@ -319,7 +529,7 @@ def main():
                f"(tol {K5_DEPTH_TOL}); kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.2f} ms "
                f"(median of {k5_plain_reps}), bound {k5_bound:.4f} ms by {k5_bound_by} "
                f"({k5_ops / 1e9:.3f} GFLOP over {k5_pairs} pairs, {k5_bytes / 1e6:.2f} MB)")
-    del got1, want1, got2, want2, got5, want5
+    del got1, want1, got2, want2, got5, want5, got4, want4, want4_cpu, drows, color1, invd1, final_t1
 
     # ---- 4. the main path at full width ----
     torch.backends.cudnn.allow_tf32 = False
@@ -407,22 +617,13 @@ def main():
             for i, s in enumerate(stages):
                 acc[s] += ev[i].elapsed_time(ev[i + 1]) / n_split
     # device busy share of the main path (torch.profiler over n_split frames)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for t in targets[:n_split]:
-            pipe.render_frame(main_avatar, t)
-        torch.cuda.synchronize()
-    kernels_seen = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels_seen) / 1e3 / n_split
-    launches_per_frame = sum(e.count for e in kernels_seen) / n_split
-    top = sorted(kernels_seen, key=lambda e: -e.self_device_time_total)[:6]
+    frames = iter(targets[:n_split])
+    busy_ms, launches_per_frame, top_text = profile_window(
+        lambda: pipe.render_frame(main_avatar, next(frames)), n_split)
     if busy_ms > 0:
         say(4, f"profiler: device busy {busy_ms:.3f} ms/frame = {busy_ms / seq_ms:.3f} of the "
                f"unprofiled {seq_ms:.2f} ms/frame (idle share {1 - busy_ms / seq_ms:.3f}); "
-               f"{launches_per_frame:.0f} device kernels a frame; top: "
-               + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n_split:.3f} ms "
-                           f"x{e.count // n_split}" for e in top))
+               f"{launches_per_frame:.0f} device kernels a frame; top: " + top_text)
     else:
         say(4, "profiler recorded no device time: busy share not measured")
     say(4, "stage split (ms, mean of 5 frames): "
@@ -568,6 +769,181 @@ def main():
            f"{worst} {field_err[worst]:.3g} (uv_scales relative), frame max abs {cframe_err:.3g} "
            f"(tol {SMALL_CREATE_TOL})")
 
+
+    # ---- 8. the training step at full width ----
+    tcfg = InfererConfig(image_size=SIZE, uvmap_size=UV, invtanfov=INVTANFOV)
+    tsc = make_train_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, batch_size=1,
+                           device=DEV)
+    statics, lpips, state, loss_fn = train_setup(tsc, tcfg, TRAIN_LR)
+    n_train = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
+    n_all = sum(p.numel() for p in state.model.parameters())
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = N_WARMUP_STEPS + N_TIMED_STEPS
+    stamps, losses, scrubbed, k3_seen = [time.perf_counter()], [], [], [0]
+    train_log = []
+
+    def on_step(it, loss, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+        scrubbed.append(int(metrics["scrubbed_grads"]))
+        k3_seen.append(k1.bwd_launches)
+
+    k1.launches = k1.bwd_launches = k2.launches = k2.bwd_launches = k5.launches = 0
+    with tempfile.TemporaryDirectory() as run_dir:
+        run_training(state, loss_fn, statics, [tsc.batch], n_steps, run_dir,
+                     valid_batches=[tsc.batch], check_interval=10 ** 9, log_every=n_steps,
+                     count_scrubbed=True, on_step=on_step, log=train_log.append)
+        torch.cuda.synchronize()
+        t_saved = time.perf_counter()
+        train_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
+        ckpts = CheckpointManager(run_dir)
+        saved = sorted(f for f in os.listdir(ckpts.dir))
+        o_inferer, o_renderer = make_models(tcfg, tsc.smplx.num_vertices)   # on the CPU
+        other = make_train_state(
+            torch.nn.ModuleDict({"inferer": o_inferer, "renderer": o_renderer}),
+            learning_rate=TRAIN_LR)
+        _, restored_it = ckpts.restore(other, os.path.join(ckpts.dir, "latest.pt"))
+        same = all(torch.equal(p.detach().cpu(), q.detach())
+                   for p, q in zip(state.model.parameters(), other.model.parameters()))
+        del other, o_inferer, o_renderer
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    timed_ms = step_ms[N_WARMUP_STEPS:]
+    med_step = statistics.median(timed_ms)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"training: a loss is not finite: {losses}")
+    k3_per_step = [b - a for a, b in zip(k3_seen[:-1], k3_seen[1:])]
+    if k3_per_step != [1] * n_steps:
+        raise SystemExit(f"training: K3 launches a step {k3_per_step}, expected 1 (the batch size)")
+    # a step launches K1 and K5 once an item; the closing validation adds one of each
+    if train_launches != {"K1": n_steps + 1, "K3": n_steps, "K5": n_steps + 1}:
+        raise SystemExit(f"training: launches {train_launches} over {n_steps} steps and one "
+                         f"validation")
+    moved = {n: float((p.detach() - before[n]).abs().max())
+             for n, p in state.model.named_parameters() if p.requires_grad}
+    n_moved = sum(v > 0 for v in moved.values())
+    if n_moved == 0:
+        raise SystemExit("training: no parameter changed")
+    frozen_moved = [n for n, p in state.model.named_parameters()
+                    if not p.requires_grad and not torch.equal(p.detach(), before[n])]
+    if frozen_moved:
+        raise SystemExit(f"training: frozen parameters changed: {frozen_moved[:3]}")
+    if restored_it != n_steps or not same or "latest.pt" not in saved:
+        raise SystemExit(f"training: checkpoint {saved} restored at iteration {restored_it}, "
+                         f"parameters equal: {same}")
+    del before
+    say(8, f"{n_steps} training steps of batch 1 at full width through run_training "
+           f"({n_all / 1e6:.1f}M parameters, {n_train / 1e6:.1f}M trained, LPIPS alex, f32, lr "
+           f"{TRAIN_LR}): median {med_step:.1f} ms/step over the last {N_TIMED_STEPS} (all: "
+           f"{', '.join(f'{t:.0f}' for t in step_ms)}); losses "
+           f"{', '.join(f'{v:.4f}' for v in losses)}; non-finite gradient entries zeroed a step "
+           f"{scrubbed}; launches {train_launches} (one validation included), K3 a step "
+           f"{k3_per_step[0]}; {n_moved} of {len(moved)} trained tensors moved; checkpoints "
+           f"{saved} written and latest restored at iteration {restored_it} in "
+           f"{time.perf_counter() - t_saved:.1f} s; peak mem {train_peak_gb:.2f} GB")
+    say(8, f"  {train_log[-1]}")
+
+    split, n_train_inst = train_split(statics, lpips, state, tsc.batch, 3)
+    say(8, "stage split (ms, mean of 3 steps): "
+           + ", ".join(f"{st} {ms:.2f}" for st, ms in split.items())
+           + f"; sum {sum(split.values()):.1f}; the step's frame bins {n_train_inst} instances")
+    step1 = make_train_step(loss_fn, state)
+    busy_ms, n_dev_kernels, top_text = profile_window(lambda: step1(tsc.batch), 1)
+    if busy_ms > 0:
+        say(8, f"profiler over one step: device busy {busy_ms:.1f} ms = {busy_ms / med_step:.3f} "
+               f"of the unprofiled {med_step:.1f} ms/step (idle share "
+               f"{1 - busy_ms / med_step:.3f}); {n_dev_kernels:.0f} device kernels a step; top: "
+               + top_text)
+    else:
+        say(8, "profiler recorded no device time: busy share not measured")
+
+    # one accumulated step of batch 2
+    tsc2 = make_train_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, batch_size=2,
+                            seed=1, device=DEV)
+    k1.launches = k1.bwd_launches = k5.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss2, metrics2 = make_sample_scan_step(loss_fn, state, count_scrubbed=True)(tsc2.batch)
+    torch.cuda.synchronize()
+    accum_ms = (time.perf_counter() - t0) * 1e3
+    accum_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
+    if accum_launches != {"K1": 2, "K3": 2, "K5": 2} or not math.isfinite(float(loss2)):
+        raise SystemExit(f"accumulated step of batch 2: launches {accum_launches}, loss "
+                         f"{float(loss2)}")
+    say(8, f"one accumulated step of batch 2: {accum_ms:.1f} ms, loss {float(loss2):.4f}, "
+           f"launches {accum_launches}, non-finite gradient entries zeroed "
+           f"{int(metrics2['scrubbed_grads'])}")
+    del statics, lpips, state, loss_fn, step1, tsc, tsc2
+
+    # ---- 9. a 32^2 training step: the GPU path against the CPU path ----
+    micro = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+        mp = make_micro_pipeline(batch_size=2, device=dev)
+        mmodel = torch.nn.ModuleDict({"inferer": mp.statics.inferer,
+                                      "renderer": mp.statics.renderer})
+        k1.bwd_launches = 0
+        mloss, _ = make_loss_fn(mp.statics, None)(mp.batch, 0)
+        mloss.backward()
+        micro[key] = (float(mloss.detach()),
+                      {n: p.grad.detach().cpu() for n, p in mmodel.named_parameters()
+                       if p.grad is not None}, k1.bwd_launches)
+    (closs, cgrads, _), (gloss, ggrads, micro_k3) = micro["cpu"], micro["gpu"]
+    if micro_k3 != 2 or sorted(cgrads) != sorted(ggrads):
+        raise SystemExit(f"32^2 step: K3 launched {micro_k3} times for a batch of 2")
+    if not abs(gloss - closs) <= MICRO_LOSS_RTOL * abs(closs):
+        raise SystemExit(f"32^2 step: loss {gloss} on the GPU, {closs} on the CPU")
+    worst_name, worst_excess, worst_rel = None, -1.0, 0.0
+    for n, c in cgrads.items():
+        g = ggrads[n]
+        if not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"32^2 step: gradient of {n} not finite on the GPU")
+        scale = float(c.abs().max())
+        excess = float(((g - c).abs() - MICRO_GRAD_RTOL * c.abs()).max()) / max(scale, 1e-30)
+        if excess > worst_excess:
+            worst_name, worst_excess = n, excess
+            worst_rel = float((g - c).abs().max()) / max(scale, 1e-30)
+    if not worst_excess <= MICRO_GRAD_ATOL:
+        raise SystemExit(f"32^2 step: gradient of {worst_name} differs by {worst_rel} of its "
+                         f"largest entry (rtol {MICRO_GRAD_RTOL}, atol {MICRO_GRAD_ATOL} of it)")
+    say(9, f"32^2 training step of batch 2 on the GPU vs the CPU (plain kernels): loss {gloss:.6f} "
+           f"vs {closs:.6f} (rtol {MICRO_LOSS_RTOL}); {len(cgrads)} parameter gradients within "
+           f"rtol {MICRO_GRAD_RTOL} + {MICRO_GRAD_ATOL} of each one's largest entry, worst "
+           f"{worst_name} at {worst_rel:.3g} of its largest; K3 launched {micro_k3} times")
+
+    # ---- 10. the planned deform path's gradient (K2 forward, K4 backward) ----
+    valid_w = avatar.uv_valid.float()[None, :, None]
+    n_vtx = sc.smplx.num_vertices
+    gen10 = torch.Generator().manual_seed(10)
+    w_xyz = torch.randn((1, n_vtx + n_tex, 3), generator=gen10).to(DEV)
+    w_scale = torch.randn((1, n_vtx + n_tex, 3), generator=gen10).to(DEV)
+    w_rot = torch.randn((1, n_vtx + n_tex, 4), generator=gen10).to(DEV)
+    for w in (w_xyz, w_scale, w_rot):      # invalid texels bind another face in each path
+        w[:, n_vtx:] *= valid_w
+    k2.launches = k2.bwd_launches = 0
+    vgrads = {}
+    for path in ("rows", "planned"):
+        verts = res0.vertices.detach().clone().requires_grad_(True)
+        kw = dict(plan=dplan, compact_faces=cfaces) if path == "planned" else {}
+        dgs = deform_with_vertices(avatar, verts, res0.vertex_transforms, sc.faces, **kw)
+        ((dgs.xyz * w_xyz).sum() + (dgs.scaling * w_scale).sum()
+         + (dgs.rotation * w_rot).sum()).backward()
+        vgrads[path] = verts.grad
+    planned_launches = {"K2": k2.launches, "K4": k2.bwd_launches}
+    if planned_launches != {"K2": 1, "K4": 1}:
+        raise SystemExit(f"planned-path gradient: launches {planned_launches}")
+    vscale = float(vgrads["rows"].abs().max())
+    verr = float((vgrads["planned"] - vgrads["rows"]).abs().max()) / vscale
+    if not (math.isfinite(verr) and vscale > 0 and verr <= PLANNED_GRAD_TOL):
+        raise SystemExit(f"planned-path gradient differs from the row-gather path's by {verr} "
+                         f"of its largest entry (tol {PLANNED_GRAD_TOL})")
+    say(10, f"gradient of a scalar of the planned deform w.r.t. the {n_vtx} posed vertices at "
+            f"the bench avatar (K2 forward, K4 backward, launches {planned_launches}) vs the "
+            f"row-gather path's: max abs difference {verr:.3g} of the largest entry (tol "
+            f"{PLANNED_GRAD_TOL})")
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
@@ -579,6 +955,17 @@ def main():
          "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms},
+        {"name": "K3 tile blend backward", "route": "cuda",
+         "source": "guava_renderer_tpu_torch/csrc/blend_bwd.cu",
+         "replaces": "guava_renderer_tpu/ops/gsplat.py:1457", "launches": train_launches["K3"],
+         "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_bound_by, "library_ms": None},
+        {"name": "K4 face gather backward", "route": "cuda",
+         "source": "guava_renderer_tpu_torch/csrc/facegather_bwd.cu",
+         "replaces": "guava_renderer_tpu/ops/facegather.py:143",
+         "launches": planned_launches["K4"], "max_abs_err": err4, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": "bytes",
+         "library_ms": k4_lib_ms},
         {"name": "K5 mesh z-buffer", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39", "launches": create_launches,

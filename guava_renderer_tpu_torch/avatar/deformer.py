@@ -10,8 +10,9 @@ The per-face quantities go into a 16-channel face table and each texel
 reads one row of it. Two gather paths share the component math:
   * default: a row gather of the (B, F, 16) table by binding face;
   * planned: texels face-sorted by a FaceSortPlan and the compact face
-    table gathered by kernel K2 into channel-major (16, N) rows. Requires a
-    face-sorted avatar (sort_avatar_by_plan) and B == 1.
+    table gathered by kernel K2 into channel-major (16, N) rows (its
+    gradient by kernel K4). Requires a face-sorted avatar
+    (sort_avatar_by_plan) and B == 1.
 """
 
 from __future__ import annotations
@@ -62,8 +63,14 @@ def sort_avatar_by_plan(avatar: GaussianAvatar, plan: FaceSortPlan) -> GaussianA
     )
 
 
+def _safe_norm(x, y, z, eps=1e-12):
+    """max(|v|, eps) with the clamp under the square root, so a zero vector
+    (a degenerate face) has a zero gradient, not inf * 0."""
+    return torch.sqrt(torch.clamp(x * x + y * y + z * z, min=eps * eps))
+
+
 def _safe_inv_norm(x, y, z, eps=1e-12):
-    return 1.0 / torch.clamp(torch.sqrt(x * x + y * y + z * z), min=eps)
+    return 1.0 / _safe_norm(x, y, z, eps)
 
 
 def _face_table(tri: torch.Tensor) -> torch.Tensor:
@@ -91,7 +98,7 @@ def _face_table(tri: torch.Tensor) -> torch.Tensor:
     inv = _safe_inv_norm(ux_, uy_, uz_)
     ux_, uy_, uz_ = -ux_ * inv, -uy_ * inv, -uz_ * inv
 
-    s0 = torch.sqrt(e1x * e1x + e1y * e1y + e1z * e1z)
+    s0 = _safe_norm(e1x, e1y, e1z)
     s1 = torch.abs(ux_ * e2x + uy_ * e2y + uz_ * e2z)
     fs = (s0 + s1) * 0.5
 
@@ -153,7 +160,8 @@ def deform_with_vertices(
             raise ValueError("the planned path needs B == 1 and compact_faces")
         tri = vertices[0, compact_faces.reshape(-1)].reshape(-1, 3, 3)
         ids = torch.as_tensor(plan.compact_ids, device=vertices.device)
-        rows16 = face_gather(_face_table(tri), ids)        # (16, N) channel-major
+        seg = torch.as_tensor(plan.segment_starts, device=vertices.device)
+        rows16 = face_gather(_face_table(tri), ids, seg)   # (16, N) channel-major
         rowc = [rows16[c][None] for c in range(14)]        # (1, N) each
     else:
         F = faces.shape[0]

@@ -18,14 +18,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..bodymodel.ehm import BodyParams, EhmModel, FlameParams, ehm_forward
 from ..core.cameras import Camera
 from ..models.decoders import UVPointGSDecoder, VertexGSDecoder
 from ..models.dpt_encoder import DinoDPTEncoder
-from ..models.layers import harmonic_embedding, resize_bilinear
+from ..models.layers import harmonic_embedding, leaky_relu, resize_bilinear
 from ..models.styleunet import StyleUNet
 from ..ops.meshraster import rasterize_mesh, visible_faces_mask
 from .sampling import grid_sample, project_to_ndc
@@ -60,7 +59,7 @@ def _mlp3(module: nn.Module, prefix: str, x: torch.Tensor) -> torch.Tensor:
     for i in range(3):
         x = getattr(module, f"{prefix}{i}")(x)
         if i < 2:
-            x = F.leaky_relu(x, 0.01)
+            x = leaky_relu(x, 0.01)
     return x
 
 

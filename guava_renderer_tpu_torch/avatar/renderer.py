@@ -24,6 +24,7 @@ class RenderOutputs(NamedTuple):
     renders: torch.Tensor          # (B, H, W, 3) refined RGB
     raw_renders: torch.Tensor      # (B, H, W, 3) rasterized RGB (channels 0:3)
     feature_renders: torch.Tensor  # (B, H, W, 32)
+    extra_renders: torch.Tensor    # (B, H, W, 3) channels 3:6
     radii: torch.Tensor            # (B, P)
     invdepth: torch.Tensor         # (B, H, W)
 
@@ -42,23 +43,28 @@ class NeuralRefiner(nn.Module):
 
 
 class GaussianRenderer(nn.Module):
-    """Rasterize (kernel K1) + refine; the refiner runs in float32."""
+    """Rasterize (kernel K1, backward K3) + refine; the refiner runs in
+    float32. `cams` is one camera for the whole batch or one per item."""
 
     def __init__(self, refiner: NeuralRefiner, settings: RasterizeSettings = RasterizeSettings()):
         super().__init__()
         self.neural_refiner = refiner
         self.settings = settings
 
-    def forward(self, gaussians: GaussianSet, cam: Camera,
+    def forward(self, gaussians: GaussianSet, cams: Camera | list[Camera],
                 bg: torch.Tensor | None = None) -> RenderOutputs:
         B = gaussians.xyz.shape[0]
+        if isinstance(cams, Camera):
+            cams = [cams] * B
+        if len(cams) != B:
+            raise ValueError(f"{len(cams)} cameras for a batch of {B}")
         if bg is None:
             bg = torch.zeros(32, dtype=torch.float32, device=gaussians.xyz.device)
         feats, radii, invds = [], [], []
         for b in range(B):
             color, radius, invd = rasterize(
                 gaussians.xyz[b], gaussians.colors[b], gaussians.opacity[b],
-                gaussians.scaling[b], gaussians.rotation[b], cam, bg, self.settings,
+                gaussians.scaling[b], gaussians.rotation[b], cams[b], bg, self.settings,
                 channels_first=False)
             feats.append(color)
             radii.append(radius)
@@ -68,6 +74,7 @@ class GaussianRenderer(nn.Module):
             renders=self.neural_refiner(feature_renders),
             raw_renders=feature_renders[..., :3],
             feature_renders=feature_renders,
+            extra_renders=feature_renders[..., 3:6],
             radii=torch.stack(radii),
             invdepth=torch.stack(invds),
         )

@@ -49,6 +49,18 @@ class CreateScene(NamedTuple):
     uv: int
 
 
+class TrainScene(NamedTuple):
+    """The inputs of a training step on the bench rig."""
+    ehm: EhmModel
+    smplx: object             # ParametricModelData
+    extras: object            # SmplxExtras
+    faces: torch.Tensor       # (F, 3) int64
+    uv_tables: tuple          # as CreateScene's
+    batch: dict               # the training batch (train/pipeline.py), tensors on the device
+    size: int
+    uv: int
+
+
 def _rig(uv: int, body_side: int, head_side: int):
     return synthetic_ehm(body_side=body_side, head_side=head_side, uv_size=uv,
                          n_shape=50, n_exp=20)
@@ -80,6 +92,23 @@ def make_create_scene(size: int = 512, uv: int = 512, body_side: int = 101,
         ehm, smplx, extras, torch.as_tensor(smplx.faces, dtype=torch.int64, device=dev),
         uv_tables, {"image": image[0].astype(np.float32), "w2c": w2c, "params": params},
         size, uv)
+
+
+def make_train_scene(size: int = 512, uv: int = 512, body_side: int = 101,
+                     head_side: int = 15, feat_size: int = 518, batch_size: int = 1,
+                     seed: int = 0, device="cuda") -> TrainScene:
+    """A training batch on the bench rig: seeded uniform feat_size^2 source
+    and size^2 target images with an all-ones mask, the camera at z = 30
+    for both, small random source and target poses, and the head and hand
+    crop boxes of the small test pipelines scaled to `size`."""
+    from .testing import synthetic_batch, tree_to_torch   # testing imports this module's peers
+
+    dev = resolve_device(device)
+    create = make_create_scene(size, uv, body_side, head_side, feat_size, device=dev)
+    batch = synthetic_batch(np.random.default_rng(seed), batch_size, size, feat_size,
+                            create.smplx.n_shape, create.smplx.n_exp, z=30.0)
+    return TrainScene(create.ehm, create.smplx, create.extras, create.faces, create.uv_tables,
+                      tree_to_torch(batch, dev), size, uv)
 
 
 def make_bench_scene(size: int = 512, uv: int = 512, body_side: int = 101,

@@ -22,7 +22,7 @@ from .avatar.state import GaussianAvatar
 from .bodymodel.ehm import EhmModel
 from .core.cameras import Camera
 from .device import resolve_device
-from .ops.facegather import FaceSortPlan
+from .ops.facegather import FaceSortPlan, segment_starts
 
 
 def _t(x, device, dtype=torch.float32):
@@ -70,6 +70,7 @@ def plan_from_numpy(plan) -> FaceSortPlan:
         used_faces=np.asarray(plan.used_faces, np.int32),
         n_texels=int(plan.n_texels),
         n_compact=int(plan.n_compact),
+        segment_starts=segment_starts(plan.compact_ids, int(plan.n_compact)),
     )
 
 
@@ -142,3 +143,32 @@ def inferer_from_flax(params: Mapping, cfg: InfererConfig, num_vertices: int,
                          f"parameters without a flax leaf: {unfilled}")
     inferer.load_state_dict(sd)        # strict: also checks every shape
     return inferer.to(dev).eval()
+
+
+def lpips_from_flax(params: Mapping, net_type: str = "alex", device="cuda"):
+    """The port's `train.lpips.LPIPS` carrying a flax LPIPS tree's weights."""
+    from .train.lpips import LPIPS
+
+    dev = resolve_device(device)
+    lpips = LPIPS(net_type)
+    lpips.load_state_dict(state_dict_from_flax(params))
+    return lpips.requires_grad_(False).to(dev).eval()
+
+
+def model_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The training tree {"inferer": ..., "renderer": ...} of flax params (or
+    of gradients: the mapping is a per-leaf transpose or flip, which carries
+    a gradient as it carries a weight) -> one dict keyed
+    `inferer.<name>` / `renderer.<name>` like `nn.ModuleDict.state_dict()`."""
+    out = {}
+    for part in ("inferer", "renderer"):
+        for k, v in state_dict_from_flax(params[part]).items():
+            out[f"{part}.{k}"] = v
+    return out
+
+
+def model_from_flax(params: Mapping, inferer, renderer) -> None:
+    """Load the training tree {"inferer", "renderer"} of flax params into the
+    two modules in place. Raises on a stray, missing or misshapen leaf."""
+    inferer.load_state_dict(state_dict_from_flax(params["inferer"]))
+    renderer.load_state_dict(state_dict_from_flax(params["renderer"]))

@@ -19,7 +19,9 @@
 // and MXU matmul exist to use its vector and matrix units; here each thread
 // walks the instances sequentially, keeping T and its 33 accumulators in
 // registers. The CTA stages the next kBatch instances' rows in shared
-// memory cooperatively (a gather through `order`, 16-byte loads) and every
+// memory cooperatively (a gather through `order`, 16-byte loads; the staging
+// and the contribution test live in blend_common.cuh, shared with the
+// backward, which must replay the same decisions) and every
 // thread then reads them as broadcasts. A round starts with
 // __syncthreads_count, which both frees the staging buffer and ends the
 // tile once every pixel is done. Rows are 44 floats (8 geometry + 32 colors
@@ -30,16 +32,11 @@
 
 #include <cstdint>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kGeom = 8;                 // x, y, conic a/b/c, alpha, 0, 0
-constexpr int kChannels = 32;
-constexpr int kRow = 44;                 // kGeom + 32 colors + invdepth + 3 pad
-constexpr int kRow4 = kRow / 4;          // 11 float4 a row
-constexpr int kBatch = 256;              // rows a round: 45,056 B of shared memory
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTMin = 1e-4f;
+using namespace guava_blend;
 
 __global__ void __launch_bounds__(1024) blend_fwd_kernel(
     const float4* __restrict__ rows, const int* __restrict__ order,
@@ -67,27 +64,24 @@ __global__ void __launch_bounds__(1024) blend_fwd_kernel(
     // Also the barrier that frees the previous round's staging buffer.
     if (__syncthreads_count(!done) == 0) break;
     const int n = min(kBatch, end - base);
-    for (int i = tid; i < n * kRow4; i += blockDim.x) {
-      const int r = i / kRow4;
-      stage[i] = rows[static_cast<int64_t>(order[base + r]) * kRow4 + (i - r * kRow4)];
-    }
+    stage_rows(stage, nullptr, rows, order, base, n);
     __syncthreads();
     if (done) continue;
     const float* s = reinterpret_cast<const float*>(stage);
     for (int j = 0; j < n; ++j, s += kRow) {
-      const float d0 = s[0] - fx;
-      const float d1 = s[1] - fy;
-      const float power = -0.5f * (s[2] * d0 * d0 + s[4] * d1 * d1) - s[3] * d0 * d1;
+      // the decisions below are replayed by blend_bwd.cu: keep them as they are
+      float d0, d1;
+      const float power = gauss_power(s, fx, fy, d0, d1);
       if (power > 0.0f) continue;
-      const float ag = s[5] * expf(power);
+      const float ag = __fmul_rn(s[5], expf(power));
       if (ag < kAlphaMin) continue;
       const float alpha = fminf(kAlphaMax, ag);
-      const float test_t = T * (1.0f - alpha);
+      const float test_t = next_t(T, alpha);
       if (test_t < kTMin) {
         done = true;
         break;
       }
-      const float w = alpha * T;
+      const float w = __fmul_rn(alpha, T);
 #pragma unroll
       for (int c = 0; c <= kChannels; ++c) acc[c] += w * s[kGeom + c];
       T = test_t;

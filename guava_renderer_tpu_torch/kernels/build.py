@@ -18,7 +18,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("blend.cu", "facegather.cu", "meshraster.cu")
+SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "meshraster.cu")
+HEADERS = ("blend_common.cuh",)   # included by the sources; part of the build's digest
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +37,11 @@ SIGNATURES = {
     "guava_blend_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # table, ids, out, n, stream
     "guava_face_gather": (_P, _P, _P, _I, _P),
+    # rows, order, ranges, bg, color, invdepth, final_T, g_color, g_invdepth, d_rows,
+    # height, width, tile, stream
+    "guava_blend_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # drows, seg, d_table, n, n_faces, stream
+    "guava_face_gather_bwd": (_P, _P, _P, _I, _I, _P),
     # tris, inst_fid, ranges, best, depth, height, width, tile, stream
     "guava_mesh_zbuffer": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
@@ -60,6 +66,8 @@ def _digest() -> str:
     for name in SOURCES:
         h.update(name.encode())
         h.update(" ".join(SOURCE_FLAGS.get(name, ())).encode())
+        h.update((CSRC / name).read_bytes())
+    for name in HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

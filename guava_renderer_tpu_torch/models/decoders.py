@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import conv
+from .layers import conv, leaky_relu
 
 
 class VertexGSDecoder(nn.Module):
@@ -81,14 +81,14 @@ class UVPointGSDecoder(nn.Module):
         for i in range(3):
             x = getattr(self, f"trunk{i}")(x)
             if i < 2:
-                x = F.leaky_relu(x, 0.01)
+                x = leaky_relu(x, 0.01)
 
         def head2(name):
-            return getattr(self, f"{name}1")(F.leaky_relu(getattr(self, f"{name}0")(x), 0.01))
+            return getattr(self, f"{name}1")(leaky_relu(getattr(self, f"{name}0")(x), 0.01))
 
         rot = head2("rotation")
         rot = rot / torch.clamp(torch.linalg.norm(rot, dim=1, keepdim=True), min=1e-12)
-        y = F.leaky_relu(self.localpos1(F.leaky_relu(self.localpos0(x), 0.01)), 0.01)
+        y = leaky_relu(self.localpos1(leaky_relu(self.localpos0(x), 0.01)), 0.01)
         out = {
             "colors": head2("color"),
             "opacities": torch.sigmoid(head2("opacity")),

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import conv, resize_bilinear
+from .layers import conv, leaky_relu, resize_bilinear
 from .vit import VisionTransformer
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -70,6 +70,7 @@ class DinoDPTEncoder(nn.Module):
         self.output_size = output_size
         self.dino = VisionTransformer(dim=vit_dim, depth=vit_depth, num_heads=vit_heads,
                                       pos_grid=vit_pos_grid, num_intermediate=5)
+        self.dino.requires_grad_(False)      # the backbone is frozen, as in the reference
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD).view(1, 3, 1, 1),
@@ -93,7 +94,8 @@ class DinoDPTEncoder(nn.Module):
         B, _, H, W = images.shape
         gh, gw = H // 14, W // 14
         x = (images - self.mean) / self.std
-        low_level, *levels = self.dino(x)     # low = 8th block; levels = last 4
+        with torch.no_grad():
+            low_level, *levels = self.dino(x)     # low = 8th block; levels = last 4
         f_global = levels[-1][:, 1]           # first patch token, see the module note
 
         def grid(tok):                        # (B, 1 + N, D) -> (B, D, gh, gw)
@@ -125,7 +127,7 @@ class DinoDPTEncoder(nn.Module):
 
         path = torch.cat([path, image_l], dim=1)
         fused = self.fuse_l0(torch.cat([path, low], dim=1))
-        fused = self.fuse_l1(F.leaky_relu(fused, 0.01))
+        fused = self.fuse_l1(leaky_relu(fused, 0.01))
         path = fused + self.skip_l(path)
         return {"f_map1": self.output_conv(path), "f_map2": self.output_conv_2(path),
                 "f_global": f_global}

@@ -14,7 +14,29 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """`F.leaky_relu` whose derivative at exactly 0 is 1, as the JAX
+    package's `where(x >= 0, x, slope * x)` has it (PyTorch's own takes the
+    slope there). The point matters: with zero biases every background pixel
+    of a rendered image and every invalid texel of a UV chart sits at
+    exactly 0 through the first convolutions."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        out = F.leaky_relu(x, negative_slope=slope)
+        ctx.save_for_backward(out)      # out has x's sign
+        ctx.slope = slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return torch.where(out >= 0, g, g * ctx.slope), None
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, slope)
     return F.leaky_relu(x, negative_slope=slope)
 
 

@@ -192,12 +192,19 @@ class StyleUNet(nn.Module):
 
 
 @torch.no_grad()
-def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_params_(module: nn.Module, generator: torch.Generator, gain: float = 1.0) -> nn.Module:
     """Seeded random weights with the flax initializers' scales: kernels and
-    dense weights N(0, 1/fan_in), biases 0, modulation biases 1, constant
-    input and the inferer's base features N(0, 1), noise weights 0;
+    dense weights N(0, gain^2 / fan_in), biases 0, modulation biases 1,
+    constant input and the inferer's base features N(0, 1), noise weights 0;
     LayerNorm scales and LayerScale gammas 1, position embeddings
-    N(0, 0.02), the CLS token 0."""
+    N(0, 0.02), the CLS token 0.
+
+    gain 1 is the flax scale, which the serving benches take. At the full
+    model's depth it is an exploding start (the residual sums double the
+    variance block by block: UV offsets of 1e4 and colours of 4e4), from
+    which the first Adam steps at the configured learning rate overflow
+    float32. Training from random weights takes gain 0.5, near PyTorch's own
+    default of 1/sqrt(3 fan_in), which starts at offsets of 0.01."""
     norms = {n for n, m in module.named_modules() if isinstance(m, nn.LayerNorm)}
     for name, p in module.named_parameters():
         owner, _, leaf = name.rpartition(".")
@@ -212,5 +219,5 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.copy_(torch.randn(p.shape, generator=generator))
         else:
             fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+            p.copy_(torch.randn(p.shape, generator=generator) * gain / math.sqrt(fan_in))
     return module

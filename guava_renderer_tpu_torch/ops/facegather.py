@@ -5,9 +5,10 @@ STATIC plan (per avatar, numpy, built once): sort the texels by binding
 face and renumber the bound faces compactly; invalid texels bind a dummy
 trailing face. The per-frame gather of the compact face table by those
 sorted ids is kernel K2 (`kernels/facegather.face_gather`, the counterpart
-of `face_window_gather`). The TPU plan's window
-bookkeeping (chunk_block0, n_blocks) feeds its one-hot MXU kernel only and
-has no counterpart here.
+of `face_window_gather`); its backward, kernel K4, is a segmented sum over
+the plan's `segment_starts`. The TPU plan's window bookkeeping
+(chunk_block0, n_blocks) feeds its one-hot MXU kernels only and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -28,12 +29,23 @@ class FaceSortPlan:
     used_faces: np.ndarray      # (Fc-1,) original face id per compact id
     n_texels: int
     n_compact: int              # Fc including the dummy face
+    # (Fc+1,) i32: sorted texels [segment_starts[f], segment_starts[f+1]) bind face f
+    segment_starts: np.ndarray | torch.Tensor
 
     def to(self, device) -> "FaceSortPlan":
-        """The plan with `compact_ids` as an int32 tensor on `device`, so the
-        per-frame gather does not copy it from the host every frame."""
+        """The plan with `compact_ids` and `segment_starts` as int32 tensors
+        on `device`, so the per-frame gather and its backward do not copy
+        them from the host every frame."""
         ids = torch.as_tensor(self.compact_ids, dtype=torch.int32, device=device)
-        return dataclasses.replace(self, compact_ids=ids)
+        seg = torch.as_tensor(self.segment_starts, dtype=torch.int32, device=device)
+        return dataclasses.replace(self, compact_ids=ids, segment_starts=seg)
+
+
+def segment_starts(compact_ids: np.ndarray, n_compact: int) -> np.ndarray:
+    """Sorted compact ids (N,) -> (n_compact + 1,) i32 first sorted texel of
+    each face (a face no texel binds has an empty segment)."""
+    return np.searchsorted(np.asarray(compact_ids), np.arange(n_compact + 1),
+                           side="left").astype(np.int32)
 
 
 def build_face_sort_plan(binding_face: np.ndarray, valid: np.ndarray) -> FaceSortPlan:
@@ -50,13 +62,15 @@ def build_face_sort_plan(binding_face: np.ndarray, valid: np.ndarray) -> FaceSor
     compact_unsorted = np.where(valid, np.searchsorted(used, safe), dummy)
     perm = np.argsort(compact_unsorted, kind="stable")
     inv_perm = np.argsort(perm, kind="stable")
+    compact = compact_unsorted[perm].astype(np.int32)
     return FaceSortPlan(
         perm=perm.astype(np.int32),
         inv_perm=inv_perm.astype(np.int32),
-        compact_ids=compact_unsorted[perm].astype(np.int32),
+        compact_ids=compact,
         used_faces=used.astype(np.int32),
         n_texels=N,
         n_compact=dummy + 1,
+        segment_starts=segment_starts(compact, dummy + 1),
     )
 
 

@@ -12,6 +12,11 @@ default path of `guava_renderer_tpu/ops/gsplat.py`).
 
 `rasterize` = `rasterize_prep` (stages 1-2) + `rasterize_blend` (stage 3).
 
+`rasterize` is differentiable in means, colors, opacities, scales, quats and
+bg: binning runs on detached values (which tiles a Gaussian reaches carries
+no gradient, as in the JAX package), the blend rows stay in the graph, and
+the blend's backward is kernel K3.
+
 The JAX package caps each Gaussian's duplication (a static instance-sort
 size is a TPU requirement); on every configuration where its cap truncates
 nothing the two instance sets are equal, and where it would truncate, this
@@ -91,15 +96,17 @@ def rasterize_prep(means3d, colors, opacities, scales, quats, cam: Camera,
     """Projection + binning + blend rows (stages 1 and 2)."""
     proj = project_gaussians(means3d, scales, quats, opacities, cam,
                              settings.scale_modifier, settings.antialiasing)
-    ranges, order = bin_gaussians(proj, cam.width, cam.height, settings.tile)
+    with torch.no_grad():
+        ranges, order = bin_gaussians(ProjectedGaussians(*(t.detach() for t in proj)),
+                                      cam.width, cam.height, settings.tile)
     return RasterPrep(pack_rows(proj, colors), order, ranges, proj.radius)
 
 
 def rasterize_blend(prep: RasterPrep, bg: torch.Tensor, height: int, width: int,
                     settings: RasterizeSettings = RasterizeSettings(),
                     channels_first: bool = True):
-    """Blend a prepped frame (stage 3, kernel K1). -> (color, invdepth) in
-    the layouts `rasterize` returns them."""
+    """Blend a prepped frame (stage 3, kernel K1; its backward is K3).
+    -> (color, invdepth) in the layouts `rasterize` returns them."""
     color, invdepth, _ = blend(prep.rows, prep.order, prep.ranges, bg, height, width,
                                settings.tile)
     if channels_first:

@@ -7,6 +7,12 @@ covariance factor M = R diag(s), EWA Jacobian with +/-1.3*tanfov clamping,
 pixel mapping. `radius_bin` is the per-axis, opacity-tightened extent
 (floored at 0.3 sigma, +1 pixel of slack, capped at the 3-sigma radius)
 that binning uses.
+
+Differentiable in means, scales, quats and opacities through `mean2d`,
+`conic`, `alpha` and `depth`. The divisions by view z take 1 in place of
+the z of a Gaussian at or behind the near plane, so a culled Gaussian has
+finite values and a zero (not NaN) gradient; the radii are integers and
+carry none.
 """
 
 from __future__ import annotations
@@ -49,6 +55,12 @@ def quat_scale_to_cov3d_rows(quats: torch.Tensor, scales: torch.Tensor):
     )
 
 
+def mark_visible(means3d: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """Frustum pre-cull, (P, 3) -> (P,) bool: camera-space z > 0.2 (the
+    reference's `markVisible`, whose NDC bounds check is commented out)."""
+    return (means3d @ cam.R.T + cam.t)[:, 2] > NEAR_CULL_Z
+
+
 def project_gaussians(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -68,7 +80,7 @@ def project_gaussians(
     full = cam.full_proj_matrix()
     hom = means3d @ full[:3, :3].T + full[:3, 3]
     w = means3d @ full[3, :3] + full[3, 3]
-    inv_w = 1.0 / (w + 1e-7)
+    inv_w = 1.0 / (torch.where(in_front, w, 1.0) + 1e-7)
     mean2d = torch.stack(
         [ndc2pix(hom[:, 0] * inv_w, cam.width), ndc2pix(hom[:, 1] * inv_w, cam.height)],
         dim=-1,
@@ -80,10 +92,11 @@ def project_gaussians(
     # EWA: clamp the tangent before building the Jacobian
     lim_x = 1.3 * cam.tanfovx
     lim_y = 1.3 * cam.tanfovy
-    txz = torch.clamp(p_view[:, 0] / tz, -lim_x, lim_x) * tz
-    tyz = torch.clamp(p_view[:, 1] / tz, -lim_y, lim_y) * tz
+    tz_safe = torch.where(in_front, tz, 1.0)
+    txz = torch.clamp(p_view[:, 0] / tz_safe, -lim_x, lim_x) * tz_safe
+    tyz = torch.clamp(p_view[:, 1] / tz_safe, -lim_y, lim_y) * tz_safe
     fx, fy = cam.focal_x, cam.focal_y
-    inv_z = 1.0 / tz
+    inv_z = 1.0 / tz_safe
     inv_z2 = inv_z * inv_z
     j00, j02 = fx * inv_z, -fx * txz * inv_z2
     j11, j12 = fy * inv_z, -fy * tyz * inv_z2
@@ -118,18 +131,24 @@ def project_gaussians(
     conic = torch.stack([c * det_inv, -b * det_inv, a * det_inv], dim=-1)
 
     # 3-sigma radius from the max eigenvalue; binning extents tightened by
-    # opacity (alpha >= 1/255 only inside q <= 2 ln(255 a0)) and per axis
-    mid = 0.5 * (a + c)
-    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-    sig = torch.sqrt(torch.clamp(lam, min=0.0))
-    nsig = torch.clamp(torch.sqrt(2.0 * torch.log(torch.clamp(255.0 * alpha, min=1.0))), min=0.3)
-    radius_f = torch.ceil(3.0 * sig)
-    rx_f = torch.minimum(torch.ceil(nsig * torch.sqrt(torch.clamp(a, min=0.0))) + 1.0, radius_f)
-    ry_f = torch.minimum(torch.ceil(nsig * torch.sqrt(torch.clamp(c, min=0.0))) + 1.0, radius_f)
-
-    valid = in_front & nonzero & (radius_f > 0)
-    radius = torch.where(valid, radius_f, 0.0).to(torch.int32)
-    radius_bin = torch.where(valid[:, None], torch.stack([rx_f, ry_f], dim=-1), 0.0).to(torch.int32)
+    # opacity (alpha >= 1/255 only inside q <= 2 ln(255 a0)) and per axis.
+    # Integers: computed outside the graph.
+    with torch.no_grad():
+        a_, c_, det_, alpha_ = a.detach(), c.detach(), det.detach(), alpha.detach()
+        mid = 0.5 * (a_ + c_)
+        lam = mid + torch.sqrt(torch.clamp(mid * mid - det_, min=0.1))
+        sig = torch.sqrt(torch.clamp(lam, min=0.0))
+        nsig = torch.clamp(torch.sqrt(2.0 * torch.log(torch.clamp(255.0 * alpha_, min=1.0))),
+                           min=0.3)
+        radius_f = torch.ceil(3.0 * sig)
+        rx_f = torch.minimum(torch.ceil(nsig * torch.sqrt(torch.clamp(a_, min=0.0))) + 1.0,
+                             radius_f)
+        ry_f = torch.minimum(torch.ceil(nsig * torch.sqrt(torch.clamp(c_, min=0.0))) + 1.0,
+                             radius_f)
+        valid = in_front & nonzero & (radius_f > 0)
+        radius = torch.where(valid, radius_f, 0.0).to(torch.int32)
+        radius_bin = torch.where(valid[:, None], torch.stack([rx_f, ry_f], dim=-1),
+                                 0.0).to(torch.int32)
     return ProjectedGaussians(mean2d, conic, alpha, tz, radius, radius_bin, valid)
 
 

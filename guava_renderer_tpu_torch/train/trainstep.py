@@ -1,0 +1,151 @@
+"""The train step (counterpart of `guava_renderer_tpu/train/trainstep.py`).
+
+Optimizer parity with the reference: Adam with betas (0, 0.99), eps 1e-8 and
+no weight decay; parameters whose name contains `style_mlp` or
+`final_linear` at 0.1x the learning rate; a linear decay of the learning
+rate from 1 to `lr_decay_rate` over `lr_decay_iter` steps. Non-finite
+gradient entries are set to 0 before the update (`nan_to_num_`).
+
+The multi-device variants of the JAX module (`make_parallel_*`,
+`make_accum_train_step`) are not here yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+SLOW_MARKERS = ("style_mlp", "final_linear")   # parameter groups at 0.1x lr
+SLOW_SCALE = 0.1
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module                      # every trained parameter (e.g. a ModuleDict)
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    iteration: int = 0                    # steps taken so far
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "iteration": self.iteration}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.scheduler.load_state_dict(sd["scheduler"])
+        self.iteration = int(sd["iteration"])
+
+
+def lr_labels(model: nn.Module) -> dict[str, str]:
+    """Parameter name -> 'slow' (style_mlp / final_linear) or 'normal'."""
+    return {name: "slow" if any(m in name for m in SLOW_MARKERS) else "normal"
+            for name, p in model.named_parameters() if p.requires_grad}
+
+
+def make_optimizer(model: nn.Module, learning_rate: float = 1e-4, lr_decay_rate: float = 0.03,
+                   lr_decay_iter: int = 200000):
+    """-> (Adam over two parameter groups, its linear-decay scheduler). Step
+    the scheduler once after every optimizer step."""
+    labels = lr_labels(model)
+    named = dict(model.named_parameters())
+    groups = []
+    for label, scale in (("normal", 1.0), ("slow", SLOW_SCALE)):
+        params = [named[n] for n, lab in labels.items() if lab == label]
+        if params:
+            groups.append({"params": params, "lr": learning_rate * scale})
+    optimizer = torch.optim.Adam(groups, betas=(0.0, 0.99), eps=1e-8, weight_decay=0.0)
+
+    def factor(step: int) -> float:
+        return 1.0 + (lr_decay_rate - 1.0) * min(step, lr_decay_iter) / lr_decay_iter
+
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+
+
+def make_train_state(model: nn.Module, **optimizer_kwargs) -> TrainState:
+    optimizer, scheduler = make_optimizer(model, **optimizer_kwargs)
+    return TrainState(model, optimizer, scheduler, 0)
+
+
+def scrub_nan_grads(model: nn.Module, count: bool = False) -> torch.Tensor | None:
+    """Set every non-finite gradient entry to 0, in place. With `count`,
+    return how many entries that was (a 0-d tensor on the gradients' device)."""
+    n = None
+    for p in model.parameters():
+        if p.grad is None:
+            continue
+        if count:
+            bad = (~torch.isfinite(p.grad)).sum()
+            n = bad if n is None else n + bad
+        p.grad.nan_to_num_(nan=0.0, posinf=0.0, neginf=0.0)
+    return n
+
+
+def _update(state: TrainState, count_scrubbed: bool):
+    scrubbed = scrub_nan_grads(state.model, count=count_scrubbed)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.iteration += 1
+    return scrubbed
+
+
+def make_train_step(loss_fn: Callable, state: TrainState, count_scrubbed: bool = False):
+    """loss_fn(batch, iteration) -> (loss, metrics). -> step(batch) -> (loss,
+    metrics), detached; the step updates `state` in place. With
+    `count_scrubbed`, metrics gains "scrubbed_grads"."""
+
+    def step(batch):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, state.iteration)
+        loss.backward()
+        scrubbed = _update(state, count_scrubbed)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if scrubbed is not None:
+            metrics["scrubbed_grads"] = scrubbed
+        return loss.detach(), metrics
+
+    return step
+
+
+def split_batch(batch, index: int):
+    """Item `index` of every tensor of a nested batch, kept as a batch of 1."""
+    if isinstance(batch, dict):
+        return {k: split_batch(v, index) for k, v in batch.items()}
+    if isinstance(batch, torch.Tensor) and batch.dim() > 0:
+        return batch[index:index + 1]
+    return batch
+
+
+def batch_size(batch) -> int:
+    if isinstance(batch, dict):
+        return batch_size(next(iter(batch.values())))
+    return batch.shape[0]
+
+
+def make_sample_scan_step(loss_fn: Callable, state: TrainState, count_scrubbed: bool = False):
+    """`make_train_step` with per-sample gradient accumulation: the batch is
+    processed one sample at a time, each as a batch of 1, and the gradients
+    and metrics are averaged. Every loss term is a per-sample mean, so the
+    result equals the batched step up to the order of float sums, while the
+    activations held at any time are one sample's."""
+
+    def step(batch):
+        B = batch_size(batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_sum, metric_sum = None, {}
+        for i in range(B):
+            loss, metrics = loss_fn(split_batch(batch, i), state.iteration)
+            (loss / B).backward()          # .grad accumulates over the samples
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            for k, v in metrics.items():
+                metric_sum[k] = metric_sum[k] + v.detach() if k in metric_sum else v.detach()
+        scrubbed = _update(state, count_scrubbed)
+        metrics = {k: v / B for k, v in metric_sum.items()}
+        if scrubbed is not None:
+            metrics["scrubbed_grads"] = scrubbed
+        return loss_sum / B, metrics
+
+    return step
