@@ -26,7 +26,13 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      a per-stage split and a profiler window over one step;
   9. a 32^2 training step of batch 2, on the GPU against the CPU;
  10. the gradient of the planned deform path (face gather forward and
-     backward kernels) against the row-gather path's at the bench avatar.
+     backward kernels) against the row-gather path's at the bench avatar;
+ 11. the raster variants (bf16 rows: K6; size classes with a resident
+     table: K7, built by K9; streaming: K8): each kernel against its plain
+     version and against K1 at frame 0, 20 frames through render_frame
+     under each setting, a 64^2 frame GPU vs CPU, the frame's gradient
+     against the default path's, a 32^2 bf16 training step GPU vs CPU and
+     two full-width training steps under each setting.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -57,7 +63,7 @@ from guava_renderer_tpu_torch.avatar.inferer import (  # noqa: E402
     InfererConfig, UbodyGaussianInferer, assemble_avatar, build_avatar, texel_visibility)
 from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
 from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
-    INVTANFOV, make_bench_scene, make_create_scene, make_train_scene)
+    INVTANFOV, UBODY_LADDER, make_bench_scene, make_create_scene, make_train_scene)
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
     FramePipeline, _batched_params, _unpack_params)
@@ -66,12 +72,14 @@ from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
 from guava_renderer_tpu_torch.kernels import facegather as k2  # noqa: E402
+from guava_renderer_tpu_torch.kernels import gather_rows as k9  # noqa: E402
 from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
 from guava_renderer_tpu_torch.models.layers import harmonic_embedding  # noqa: E402
 from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
 from guava_renderer_tpu_torch.ops.facegather import build_face_sort_plan, compact_faces  # noqa: E402
 from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
-    RasterizeSettings, bin_gaussians, pack_rows, rasterize)
+    RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident, resident_count,
+    resident_ids, round_colors_bf16, stream_rows)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import bin_mesh, rasterize_mesh  # noqa: E402
 from guava_renderer_tpu_torch.testing import make_micro_pipeline  # noqa: E402
@@ -131,6 +139,11 @@ MICRO_LOSS_RTOL = 1e-4
 # gradient's largest entry (cuDNN's and the CPU's convolutions sum in other
 # orders, and the blend backward adds atomically)
 MICRO_GRAD_RTOL, MICRO_GRAD_ATOL = 2e-3, 1e-4
+# the same step with bf16 rows: a color whose f32 value differs between the devices by an
+# ulp near a bf16 rounding boundary rounds to neighbouring bf16 values, 2^-8 apart, so the
+# step's gradients agree to rtol MICRO_GRAD_RTOL + this share of each leaf's largest entry
+# (2.0e-3 measured on an H100)
+MICRO_BF16_GRAD_ATOL = 1e-2
 PLANNED_GRAD_TOL = 1e-4        # planned against row-gather vertex gradient, share of its max
 K5_DEPTH_TOL = 1e-6
 SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
@@ -248,13 +261,13 @@ def check_avatar(avatar, where):
             raise SystemExit(f"{where}: avatar field {field} is not finite")
 
 
-def train_setup(scene, cfg, lr):
+def train_setup(scene, cfg, lr, raster=RasterizeSettings(tile=TILE)):
     """Random-weight models, LPIPS, statics, train state and loss function
     for a training scene at the widths of `cfg` (seed 0)."""
     gen = torch.Generator().manual_seed(0)
     inferer, renderer = make_models(cfg, scene.smplx.num_vertices,
                                     refiner_channel_scale=cfg.channel_scale,
-                                    raster_settings=RasterizeSettings(tile=TILE))
+                                    raster_settings=raster)
     init_params_(inferer, gen, gain=TRAIN_INIT_GAIN)
     init_params_(renderer, gen, gain=TRAIN_INIT_GAIN)
     lpips = init_lpips_(LPIPS("alex"), gen).to(DEV)
@@ -331,6 +344,356 @@ def profile_window(fn, n):
     text = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x{e.count // n}"
                      for e in top)
     return busy_ms, sum(e.count for e in seen) / n, text
+
+
+def micro_step_vs_cpu(raster=None, grad_atol=MICRO_GRAD_ATOL):
+    """One 32^2 training step of batch 2 (`make_micro_pipeline`, the
+    multi-scale L2 loss) on the CPU (plain kernels) and on the GPU, with
+    `raster` in place of the pipeline's RasterizeSettings when given; exits
+    unless the loss and every parameter gradient agree (MICRO_*
+    tolerances; `grad_atol` of each leaf's largest entry). -> (GPU loss,
+    CPU loss, gradients compared, worst
+    parameter, its difference over its largest entry, the GPU step's
+    launches of K1, K3 and K6)."""
+    micro = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+        mp = make_micro_pipeline(batch_size=2, device=dev)
+        if raster is not None:
+            mp.statics.renderer.settings = raster
+        mmodel = torch.nn.ModuleDict({"inferer": mp.statics.inferer,
+                                      "renderer": mp.statics.renderer})
+        k1.launches = k1.bwd_launches = k1.bf16_launches = 0
+        mloss, _ = make_loss_fn(mp.statics, None)(mp.batch, 0)
+        mloss.backward()
+        micro[key] = (float(mloss.detach()),
+                      {n: p.grad.detach().cpu() for n, p in mmodel.named_parameters()
+                       if p.grad is not None},
+                      {"K1": k1.launches, "K3": k1.bwd_launches, "K6": k1.bf16_launches})
+    (closs, cgrads, _), (gloss, ggrads, launches) = micro["cpu"], micro["gpu"]
+    if sorted(cgrads) != sorted(ggrads):
+        raise SystemExit("32^2 step: the GPU and the CPU step have other parameter gradients")
+    if not abs(gloss - closs) <= MICRO_LOSS_RTOL * abs(closs):
+        raise SystemExit(f"32^2 step: loss {gloss} on the GPU, {closs} on the CPU")
+    worst_name, worst_excess, worst_rel = None, -1.0, 0.0
+    for n, c in cgrads.items():
+        g = ggrads[n]
+        if not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"32^2 step: gradient of {n} not finite on the GPU")
+        scale = float(c.abs().max())
+        excess = float(((g - c).abs() - MICRO_GRAD_RTOL * c.abs()).max()) / max(scale, 1e-30)
+        if excess > worst_excess:
+            worst_name, worst_excess = n, excess
+            worst_rel = float((g - c).abs().max()) / max(scale, 1e-30)
+    if not worst_excess <= grad_atol:
+        raise SystemExit(f"32^2 step: gradient of {worst_name} differs by {worst_rel} of its "
+                         f"largest entry (rtol {MICRO_GRAD_RTOL}, atol {grad_atol} of it)")
+    return gloss, closs, len(cgrads), worst_name, worst_rel, launches
+
+
+def variant_grads(gs, cam, settings):
+    """Gradients of sum(color^2) + sum(invdepth^2) of one frame's
+    rasterization with respect to (means, colors, opacities, scales,
+    quats), the loss of the JAX package's bf16 gradient gate."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (gs.xyz[0], gs.colors[0], gs.opacity[0], gs.scaling[0], gs.rotation[0])]
+    color, _, invd = rasterize(*leaves, cam, torch.zeros(32, device=DEV), settings,
+                               channels_first=False)
+    (color.square().sum() + invd.square().sum()).backward()
+    return [leaf.grad for leaf in leaves]
+
+
+def timed_once(fn):
+    """(fn(), ms of that one call on the host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def blend_bound(rows_bytes, n_order, visited, contrib):
+    """K1's bound for a forward blend of the bench frame that reads
+    `rows_bytes` of rows and n_order ids: (ms, what bounds it)."""
+    n_bytes = (rows_bytes + n_order * 4 + ((SIZE // TILE) ** 2 + 1) * 4 + 32 * 4
+               + SIZE * SIZE * 34 * 4)
+    ops = visited * K1_OPS_VISITED + contrib * K1_OPS_CONTRIB
+    by = "operations" if ops / FP32_FLOPS > n_bytes / HBM_BYTES_PER_S else "bytes"
+    return max(n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3, by, n_bytes
+
+
+def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames):
+    """Phase 11 (see the module docstring). -> the kernels-line entries of
+    K6, K7, K8 and K9."""
+    variants = {"bf16": RasterizeSettings(tile=TILE, bf16_rows=True),
+                "vmem": RasterizeSettings(tile=TILE, size_classes=UBODY_LADDER, vmem_classes=2),
+                "stream": RasterizeSettings(tile=TILE, streaming=True)}
+    bg = torch.zeros(32, device=DEV)
+    img = (SIZE, SIZE, TILE)
+
+    # 11.1 the kernels at frame 0 of the bench scene, against their plain versions and K1
+    with torch.no_grad():
+        gs = deform_avatar(avatar, sc.ehm, sc.faces, sc.base_body, sc.base_flame, plan=dplan,
+                           compact_faces=cfaces)
+        proj = project_gaussians(gs.xyz[0], gs.scaling[0], gs.rotation[0], gs.opacity[0], sc.cam)
+        ranges, order = bin_gaussians(proj, SIZE, SIZE, TILE)
+        rows = pack_rows(proj, gs.colors[0])
+        P, N = rows.shape[0], order.shape[0]
+        ref1 = k1.blend(rows, order, ranges, bg, *img)
+        visited, contrib = k1_pairs(rows, order, ranges, TILE)
+
+        L = resident_count(variants["vmem"], P)
+        lids = resident_ids(proj, SIZE, SIZE, TILE, L)
+        lids64 = lids.long()
+        ltable = k9.gather_rows(rows, lids)
+        if not torch.equal(ltable, k9.gather_rows_plain(rows, lids)):
+            raise SystemExit("K9 differs from its plain version (index_select)")
+        k9_ms = cuda_ms(lambda: k9.gather_rows(rows, lids), reps=50)
+        k9_plain_ms = cuda_ms(lambda: k9.gather_rows_plain(rows, lids), reps=50)
+        k9_lib_ms = cuda_ms(lambda: torch.index_select(rows, 0, lids64), reps=50)
+        k9_bytes = L * k1.ROW * 4 * 2 + L * 4
+        k9_bound = k9_bytes / HBM_BYTES_PER_S * 1e3
+        say(11, f"K9 row gather: L={L} of P={P} (the first two classes of the ubody ladder), "
+                f"equal to index_select; kernel {k9_ms:.4f} ms, plain {k9_plain_ms:.4f} ms, "
+                f"index_select {k9_lib_ms:.4f} ms, bound {k9_bound:.5f} ms ({k9_bytes} B)")
+
+        order_r = remap_resident(order, lids, P)
+        n_resident_inst = int((order_r >= P).sum())
+        got7 = k1.forward_resident(rows, ltable, order_r, ranges, bg, *img)
+        if not all(torch.equal(g, w) for g, w in zip(got7, ref1)):
+            raise SystemExit("K7 differs from K1 on the same rows")
+        want7, k7_plain_ms = timed_once(
+            lambda: k1.blend_resident_plain(rows, ltable, order_r, ranges, bg, *img))
+        err7 = max(float((g - w).abs().max()) for g, w in zip(got7, want7))
+        if not err7 <= K1_TOL:
+            raise SystemExit(f"K7 disagrees with its plain version: max abs {err7} > {K1_TOL}")
+        k7_bound, k7_by, k7_bytes = blend_bound((P + L) * k1.ROW * 4, N, visited, contrib)
+        say(11, f"K7 resident-table blend: {n_resident_inst} of {N} instances read the "
+                f"{L}-row table; bit-equal to K1 on the same rows, max abs vs plain {err7:.3g} "
+                f"(tol {K1_TOL}); plain {k7_plain_ms:.1f} ms (one call), bound "
+                f"{k7_bound:.4f} ms by {k7_by} ({k7_bytes / 1e6:.1f} MB)")
+        del want7, got7
+
+        packed = k1.pack_rows_bf16(rows)
+        unpacked = k1.unpack_rows_bf16(packed)
+        got6 = k1.forward_bf16(packed, order, ranges, bg, *img)
+        if not all(torch.equal(g, w) for g, w in zip(got6, k1.blend(unpacked, order, ranges, bg,
+                                                                    *img))):
+            raise SystemExit("K6 differs from K1 on the unpacked rows")
+        want6, k6_plain_ms = timed_once(
+            lambda: k1.blend_bf16_plain(packed, order, ranges, bg, *img))
+        err6 = max(float((g - w).abs().max()) for g, w in zip(got6, want6))
+        if not err6 <= K1_TOL:
+            raise SystemExit(f"K6 disagrees with its plain version: max abs {err6} > {K1_TOL}")
+        k6_vs_f32 = float((got6[0] - ref1[0]).abs().max())
+        v6, c6 = k1_pairs(unpacked, order, ranges, TILE)
+        k6_bound, k6_by, k6_bytes = blend_bound(P * k1.ROW_BF16 * 2, N, v6, c6)
+        say(11, f"K6 bf16-row blend: rows of {k1.ROW_BF16 * 2} B; bit-equal to K1 on the unpacked "
+                f"rows, max abs vs plain {err6:.3g} (tol {K1_TOL}), vs the f32 image {k6_vs_f32:.3g}; "
+                f"visited pairs {v6} (f32 rows: {visited}); plain {k6_plain_ms:.1f} ms (one "
+                f"call), bound {k6_bound:.4f} ms by {k6_by} ({k6_bytes / 1e6:.1f} MB)")
+        del want6, got6, unpacked
+
+        stream = stream_rows(rows, order)
+        got8 = k1.forward_stream(stream, ranges, bg, *img)
+        if not all(torch.equal(g, w) for g, w in zip(
+                got8, k1.blend(round_colors_bf16(rows), order, ranges, bg, *img))):
+            raise SystemExit("K8 differs from K1 on the rows with bf16-rounded colors")
+        want8, k8_plain_ms = timed_once(lambda: k1.blend_stream_plain(stream, ranges, bg, *img))
+        err8 = max(float((g - w).abs().max()) for g, w in zip(got8, want8))
+        if not err8 <= K1_TOL:
+            raise SystemExit(f"K8 disagrees with its plain version: max abs {err8} > {K1_TOL}")
+        k8_bound, k8_by, k8_bytes = blend_bound(N * k1.ROW * 4, 0, visited, contrib)
+        say(11, f"K8 stream blend: stream of {N} rows ({N * k1.ROW * 4 / 1e6:.1f} MB); bit-equal "
+                f"to K1 on the rows with bf16 colors, max abs vs plain {err8:.3g} (tol {K1_TOL}); "
+                f"plain {k8_plain_ms:.1f} ms (one call), bound {k8_bound:.4f} ms by {k8_by} "
+                f"({k8_bytes / 1e6:.1f} MB)")
+        del want8, got8, ref1
+
+        # the four forward blends timed in turns, so that clock drift favours none
+        runs = {"K1": lambda: k1.blend(rows, order, ranges, bg, *img),
+                "K6": lambda: k1.forward_bf16(packed, order, ranges, bg, *img),
+                "K7": lambda: k1.forward_resident(rows, ltable, order_r, ranges, bg, *img),
+                "K8": lambda: k1.forward_stream(stream, ranges, bg, *img)}
+        turns = {k: [] for k in runs}
+        for _ in range(3):
+            for k, fn in runs.items():
+                turns[k].append(cuda_ms(fn))
+        blend_ms = {k: statistics.median(v) for k, v in turns.items()}
+        k6_ms, k7_ms, k8_ms = blend_ms["K6"], blend_ms["K7"], blend_ms["K8"]
+        say(11, "forward blends at frame 0, in turns (median of 3 rounds of 10 launches): "
+                + ", ".join(f"{k} {v:.4f} ms ({v / blend_ms['K1']:.3f} x K1)"
+                            for k, v in blend_ms.items()))
+        del packed, stream
+
+    # 11.2 the main path under each setting: 20 frames through render_frame
+    frame_launches, frame_ms = {}, {}
+    for name, st in variants.items():
+        vpipe = FramePipeline(sc.ehm, sc.faces, refiner, image_size=SIZE, invtanfov=INVTANFOV,
+                              settings=st, opacity_threshold=0.0, device=DEV)
+        vav = vpipe.prepare_avatar(sc.avatar)
+        vpipe.render_frame(vav, targets[0])          # warm-up
+        torch.cuda.synchronize()
+        k1.launches = k1.bf16_launches = k1.resident_launches = k1.stream_launches = 0
+        k2.launches = k9.launches = 0
+        t0 = time.perf_counter()
+        frames = [vpipe.render_frame(vav, t) for t in targets]
+        torch.cuda.synchronize()
+        frame_ms[name] = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        counts = {"K1": k1.launches, "K2": k2.launches, "K6": k1.bf16_launches,
+                  "K7": k1.resident_launches, "K8": k1.stream_launches, "K9": k9.launches}
+        kernel = {"bf16": ("K6",), "vmem": ("K7", "K9"), "stream": ("K8",)}[name]
+        want = {k: (N_FRAMES if k in kernel + ("K2",) else 0) for k in counts}
+        if counts != want:
+            raise SystemExit(f"{name} frames: launches {counts}, expected {want}")
+        frame_launches[name] = counts
+        frames_iter = iter(targets[:5])
+        busy_ms, n_dev, _ = profile_window(lambda: vpipe.render_frame(vav, next(frames_iter)), 5)
+        for out in frames:
+            for k in ("render", "raw"):
+                v = out[k]
+                if v.shape != (SIZE, SIZE, 3) or not bool(torch.isfinite(v).all()) \
+                        or float(v.min()) < 0.0 or float(v.max()) > 1.0:
+                    raise SystemExit(f"{name} frames: bad {k} image {tuple(v.shape)}")
+            if not bool(torch.isfinite(out["invdepth"]).all()):
+                raise SystemExit(f"{name} frames: invdepth not finite")
+        diff = {k: max(float((f[k] - d[k]).abs().max()) for f, d in zip(frames, default_frames))
+                for k in ("render", "raw", "invdepth")}
+        if name == "vmem" and (diff["raw"] or diff["invdepth"] or diff["render"] > 1e-5):
+            raise SystemExit(f"vmem frames differ from the default path's: {diff}")
+        busy = (f"device busy {busy_ms:.3f} ms/frame (idle share "
+                f"{1 - busy_ms / frame_ms[name]:.3f}), {n_dev:.0f} device kernels a frame"
+                if busy_ms > 0 else "profiler recorded no device time")
+        say(11, f"{name}: {N_FRAMES} frames {SIZE}^2 through render_frame {frame_ms[name]:.2f} "
+                f"ms/frame ({1e3 / frame_ms[name]:.2f} fps), {busy}; launches {counts}; max abs vs the "
+                f"default path's frames: render {diff['render']:.3g}, raw {diff['raw']:.3g}, "
+                f"invdepth {diff['invdepth']:.3g}")
+        del frames, vpipe, vav
+
+    # 11.3 a 64^2 frame under each setting, the GPU against the CPU
+    small = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+        ssc = make_bench_scene(64, 64, 21, 7, device=dev)
+        sref = init_params_(NeuralRefiner(64, style_dim=64, num_mlp=2, channel_scale=4.0),
+                            torch.Generator().manual_seed(1))
+        for name, st in variants.items():
+            spipe = FramePipeline(ssc.ehm, ssc.faces, sref, image_size=64, invtanfov=INVTANFOV,
+                                  settings=st._replace(tile=16), device=dev)
+            small[key, name] = {k: v.cpu() for k, v in
+                                spipe.render_frame(spipe.prepare_avatar(ssc.avatar),
+                                                   targets[3]).items()}
+    small_err = {name: max(float((small["cpu", name][k] - small["gpu", name][k]).abs().max())
+                           for k in small["cpu", name]) for name in variants}
+    if not max(small_err.values()) <= 1e-4:
+        raise SystemExit(f"64^2 frames: GPU vs CPU max abs {small_err} > 1e-4")
+    say(11, "64^2 frame on the GPU vs the CPU (plain kernels), max abs: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in small_err.items()) + " (tol 1e-4)")
+
+    # 11.4 the bench frame's gradient under each setting against the default path's
+    g_def = variant_grads(gs, sc.cam, RasterizeSettings(tile=TILE))
+    names = ("means", "colors", "opacities", "scales", "quats")
+    for name, st in variants.items():
+        g_var = variant_grads(gs, sc.cam, st)
+        if not all(bool(torch.isfinite(g).all()) for g in g_var):
+            raise SystemExit(f"{name}: a frame gradient is not finite")
+        if name == "vmem":
+            worst = 0.0
+            for a, b in zip(g_def, g_var):
+                col_max = a.abs().amax(0)
+                worst = max(worst, float(((b - a).abs().amax(0)
+                                          / col_max.clamp(min=1e-30)).max()))
+            if not worst <= K3_TOL:
+                raise SystemExit(f"vmem frame gradient differs from the default path's by "
+                                 f"{worst} of a column's largest (tol {K3_TOL})")
+            say(11, f"vmem: the frame's gradient vs the default path's, worst column "
+                    f"{worst:.3g} of its largest (tol {K3_TOL})")
+            continue
+        # the JAX package's own gates: bf16 rows tests/test_gsplat.py:740-769 (means, colors,
+        # opacities), streaming :555-576 (all five, against the largest entry). The stream's
+        # backward replays on the f32 rows against the image of the bf16 colors, as the JAX
+        # package's does, so a small gradient may differ by more than its own size there
+        stats = []
+        for leaf, a, b in zip(names, g_def, g_var):
+            cos = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+            rel = ((a - b).abs() / a.abs().clamp(min=1e-2)).flatten()
+            p99 = float(torch.quantile(rel[:2 ** 24], 0.99))
+            of_max = float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+            stats.append(f"{leaf} cos {cos:.7f} p99 {p99:.3g} max {of_max:.3g} of its largest")
+            if name == "bf16" and leaf in names[:3]:
+                ok = cos > 0.9999 and p99 < 0.15
+            else:
+                ok = cos > 0.9999 and of_max <= 2e-2
+            if not ok:
+                raise SystemExit(f"{name}: frame gradient of {leaf}: cosine {cos}, 99th "
+                                 f"percentile relative difference {p99}, max difference "
+                                 f"{of_max} of the largest entry")
+        gate = ("cosine > 0.9999 and 99th-percentile relative < 0.15 on means, colors, opacities"
+                if name == "bf16" else "cosine > 0.9999 and max within 2e-2 of the largest entry")
+        say(11, f"{name}: the frame's gradient vs the default path's ({gate}): "
+                + "; ".join(stats))
+
+    # 11.5 a 32^2 training step with bf16 rows, the GPU against the CPU
+    gloss, closs, n_grads, worst_name, worst_rel, mlaunch = micro_step_vs_cpu(
+        RasterizeSettings(tile=16, bf16_rows=True), MICRO_BF16_GRAD_ATOL)
+    if (mlaunch["K6"], mlaunch["K3"], mlaunch["K1"]) != (2, 2, 0):
+        raise SystemExit(f"32^2 bf16 step: launches {mlaunch}, expected K6 and K3 twice")
+    say(11, f"32^2 training step of batch 2 with bf16 rows, GPU vs CPU: loss {gloss:.6f} vs "
+            f"{closs:.6f} (rtol {MICRO_LOSS_RTOL}); {n_grads} gradients within rtol "
+            f"{MICRO_GRAD_RTOL} + {MICRO_BF16_GRAD_ATOL} of each one's largest entry, worst "
+            f"{worst_name} at {worst_rel:.3g} of its largest; launches {mlaunch}")
+
+    # 11.6 two full-width training steps under each setting, each from the same weights
+    tcfg = InfererConfig(image_size=SIZE, uvmap_size=UV, invtanfov=INVTANFOV)
+    tsc = make_train_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, batch_size=1,
+                           device=DEV)
+    statics, lpips, state, loss_fn = train_setup(tsc, tcfg, TRAIN_LR)
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    first_loss = {}
+    for name, st in variants.items():
+        statics.renderer.settings = st
+        state.model.load_state_dict(init)
+        state = make_train_state(state.model, learning_rate=TRAIN_LR)
+        step = make_train_step(loss_fn, state, count_scrubbed=True)
+        k1.launches = k1.bwd_launches = k1.bf16_launches = k1.resident_launches = 0
+        k1.stream_launches = k9.launches = 0
+        losses, ms = [], []
+        for _ in range(2):
+            (loss, metrics), t = timed_once(lambda: step(tsc.batch))
+            losses.append(float(loss))
+            ms.append(t)
+        counts = {"K1": k1.launches, "K3": k1.bwd_launches, "K6": k1.bf16_launches,
+                  "K7": k1.resident_launches, "K8": k1.stream_launches, "K9": k9.launches}
+        kernel = {"bf16": ("K6",), "vmem": ("K7", "K9"), "stream": ("K8",)}[name]
+        want = {k: (2 if k in kernel + ("K3",) else 0) for k in counts}
+        if counts != want or not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"{name} training steps: launches {counts} (expected {want}), "
+                             f"losses {losses}")
+        first_loss[name] = losses[0]
+        say(11, f"{name}: 2 training steps at full width, batch 1: {ms[0]:.1f}, {ms[1]:.1f} ms, "
+                f"losses {losses[0]:.6f}, {losses[1]:.6f}, non-finite gradient entries zeroed "
+                f"{int(metrics['scrubbed_grads'])}; launches {counts}")
+    # the first step's loss is taken on the same weights under every setting
+    spread = max(first_loss.values()) / min(first_loss.values()) - 1
+    if not spread <= 1e-2:
+        raise SystemExit(f"first-step losses under the three settings differ by {spread}: "
+                         f"{first_loss}")
+    del statics, lpips, state, loss_fn, tsc, init
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, by, lib):
+        return {"name": name, "route": "cuda", "source": f"guava_renderer_tpu_torch/csrc/{source}",
+                "replaces": f"guava_renderer_tpu/ops/gsplat.py:{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib}
+
+    return [
+        entry("K6 tile blend, bf16 rows", "blend_bf16.cu", 1093, frame_launches["bf16"]["K6"],
+              err6, k6_ms, k6_plain_ms, k6_bound, k6_by, None),
+        entry("K7 tile blend, resident table", "blend_resident.cu", 1227,
+              frame_launches["vmem"]["K7"], err7, k7_ms, k7_plain_ms, k7_bound, k7_by, None),
+        entry("K8 tile blend, stream", "blend_stream.cu", 1350, frame_launches["stream"]["K8"],
+              err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
+        entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
+              k9_plain_ms, k9_bound, "bytes", k9_lib_ms),
+    ]
 
 
 def main():
@@ -879,37 +1242,12 @@ def main():
     del statics, lpips, state, loss_fn, step1, tsc, tsc2
 
     # ---- 9. a 32^2 training step: the GPU path against the CPU path ----
-    micro = {}
-    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
-        mp = make_micro_pipeline(batch_size=2, device=dev)
-        mmodel = torch.nn.ModuleDict({"inferer": mp.statics.inferer,
-                                      "renderer": mp.statics.renderer})
-        k1.bwd_launches = 0
-        mloss, _ = make_loss_fn(mp.statics, None)(mp.batch, 0)
-        mloss.backward()
-        micro[key] = (float(mloss.detach()),
-                      {n: p.grad.detach().cpu() for n, p in mmodel.named_parameters()
-                       if p.grad is not None}, k1.bwd_launches)
-    (closs, cgrads, _), (gloss, ggrads, micro_k3) = micro["cpu"], micro["gpu"]
-    if micro_k3 != 2 or sorted(cgrads) != sorted(ggrads):
+    gloss, closs, n_grads, worst_name, worst_rel, micro_launches = micro_step_vs_cpu()
+    micro_k3 = micro_launches["K3"]
+    if micro_k3 != 2:
         raise SystemExit(f"32^2 step: K3 launched {micro_k3} times for a batch of 2")
-    if not abs(gloss - closs) <= MICRO_LOSS_RTOL * abs(closs):
-        raise SystemExit(f"32^2 step: loss {gloss} on the GPU, {closs} on the CPU")
-    worst_name, worst_excess, worst_rel = None, -1.0, 0.0
-    for n, c in cgrads.items():
-        g = ggrads[n]
-        if not bool(torch.isfinite(g).all()):
-            raise SystemExit(f"32^2 step: gradient of {n} not finite on the GPU")
-        scale = float(c.abs().max())
-        excess = float(((g - c).abs() - MICRO_GRAD_RTOL * c.abs()).max()) / max(scale, 1e-30)
-        if excess > worst_excess:
-            worst_name, worst_excess = n, excess
-            worst_rel = float((g - c).abs().max()) / max(scale, 1e-30)
-    if not worst_excess <= MICRO_GRAD_ATOL:
-        raise SystemExit(f"32^2 step: gradient of {worst_name} differs by {worst_rel} of its "
-                         f"largest entry (rtol {MICRO_GRAD_RTOL}, atol {MICRO_GRAD_ATOL} of it)")
     say(9, f"32^2 training step of batch 2 on the GPU vs the CPU (plain kernels): loss {gloss:.6f} "
-           f"vs {closs:.6f} (rtol {MICRO_LOSS_RTOL}); {len(cgrads)} parameter gradients within "
+           f"vs {closs:.6f} (rtol {MICRO_LOSS_RTOL}); {n_grads} parameter gradients within "
            f"rtol {MICRO_GRAD_RTOL} + {MICRO_GRAD_ATOL} of each one's largest entry, worst "
            f"{worst_name} at {worst_rel:.3g} of its largest; K3 launched {micro_k3} times")
 
@@ -944,6 +1282,9 @@ def main():
             f"row-gather path's: max abs difference {verr:.3g} of the largest entry (tol "
             f"{PLANNED_GRAD_TOL})")
 
+    # ---- 11. the raster variants ----
+    variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq)
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
@@ -971,6 +1312,7 @@ def main():
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39", "launches": create_launches,
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None},
+        *variant_kernels,
     ]
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise SystemExit(f"non-finite timing in {kernels}")

@@ -22,6 +22,17 @@ from .device import resolve_device
 
 INVTANFOV = 24.0
 
+# Size-class ladders ((count, cap), ...) of the JAX package, for
+# `RasterizeSettings.size_classes`: descending tile-rect-area classes. The
+# port bins uncapped, so here they only choose the Gaussians that
+# `vmem_classes` keeps resident. EXACT_LADDER is
+# guava_renderer_tpu/benchscene.py:43; UBODY_LADDER is the raster block of
+# configs/train/ubody_512.yaml:55-56, whose first two classes hold
+# 173 + 892 = 1,065 Gaussians.
+EXACT_LADDER = ((256, 256), (3840, 64), (28672, 16), (32768, 4))
+UBODY_LADDER = ((173, 256), (892, 100), (1528, 49), (2868, 30), (3858, 16), (11177, 9),
+                (128417, 4))
+
 
 class BenchScene(NamedTuple):
     avatar: GaussianAvatar    # pruned (threshold 0), trained-stats splats

@@ -22,81 +22,35 @@
 // memory cooperatively (a gather through `order`, 16-byte loads; the staging
 // and the contribution test live in blend_common.cuh, shared with the
 // backward, which must replay the same decisions) and every
-// thread then reads them as broadcasts. A round starts with
-// __syncthreads_count, which both frees the staging buffer and ends the
-// tile once every pixel is done. Rows are 44 floats (8 geometry + 32 colors
-// + invdepth + 3 pad), not the TPU's 128-lane row, which existed only for
-// DMA alignment. The image is written directly in (H, W, 32) layout.
+// thread then reads them as broadcasts. The walk itself is blend_fwd.cuh's
+// blend_tile, which K6, K7 and K8 share. Rows are 44 floats (8 geometry +
+// 32 colors + invdepth + 3 pad), not the TPU's 128-lane row, which existed
+// only for DMA alignment. The image is written directly in (H, W, 32)
+// layout.
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
-#include "blend_common.cuh"
+#include "blend_fwd.cuh"
 
 namespace {
 
 using namespace guava_blend;
+
+// A round's rows: order[base : base + n] gathered from the (P, 44) table.
+struct GatherRows {
+  const float4* rows;
+  const int* order;
+  __device__ void operator()(float4* stage, int base, int n) const {
+    stage_rows(stage, nullptr, rows, order, base, n);
+  }
+};
 
 __global__ void __launch_bounds__(1024) blend_fwd_kernel(
     const float4* __restrict__ rows, const int* __restrict__ order,
     const int* __restrict__ ranges, const float* __restrict__ bg,
     float* __restrict__ color, float* __restrict__ invdepth,
     float* __restrict__ final_t, int width, int tile, int grid_x) {
-  __shared__ float4 stage[kBatch * kRow4];
-
-  const int tid = threadIdx.x;
-  const int tile_id = blockIdx.x;
-  const int px = (tile_id % grid_x) * tile + tid % tile;
-  const int py = (tile_id / grid_x) * tile + tid / tile;
-  const float fx = static_cast<float>(px);
-  const float fy = static_cast<float>(py);
-  const int start = ranges[tile_id];
-  const int end = ranges[tile_id + 1];
-
-  float acc[kChannels + 1];
-#pragma unroll
-  for (int c = 0; c <= kChannels; ++c) acc[c] = 0.0f;
-  float T = 1.0f;
-  bool done = false;
-
-  for (int base = start; base < end; base += kBatch) {
-    // Also the barrier that frees the previous round's staging buffer.
-    if (__syncthreads_count(!done) == 0) break;
-    const int n = min(kBatch, end - base);
-    stage_rows(stage, nullptr, rows, order, base, n);
-    __syncthreads();
-    if (done) continue;
-    const float* s = reinterpret_cast<const float*>(stage);
-    for (int j = 0; j < n; ++j, s += kRow) {
-      // the decisions below are replayed by blend_bwd.cu: keep them as they are
-      float d0, d1;
-      const float power = gauss_power(s, fx, fy, d0, d1);
-      if (power > 0.0f) continue;
-      const float ag = __fmul_rn(s[5], expf(power));
-      if (ag < kAlphaMin) continue;
-      const float alpha = fminf(kAlphaMax, ag);
-      const float test_t = next_t(T, alpha);
-      if (test_t < kTMin) {
-        done = true;
-        break;
-      }
-      const float w = __fmul_rn(alpha, T);
-#pragma unroll
-      for (int c = 0; c <= kChannels; ++c) acc[c] += w * s[kGeom + c];
-      T = test_t;
-    }
-  }
-
-  const int64_t pix = static_cast<int64_t>(py) * width + px;
-  float4* out4 = reinterpret_cast<float4*>(color + pix * kChannels);
-#pragma unroll
-  for (int c = 0; c < kChannels; c += 4) {
-    out4[c / 4] = make_float4(acc[c] + T * bg[c], acc[c + 1] + T * bg[c + 1],
-                              acc[c + 2] + T * bg[c + 2], acc[c + 3] + T * bg[c + 3]);
-  }
-  invdepth[pix] = acc[kChannels];
-  final_t[pix] = T;
+  blend_tile(GatherRows{rows, order}, ranges, bg, color, invdepth, final_t, width, tile, grid_x);
 }
 
 }  // namespace
@@ -108,12 +62,11 @@ extern "C" int guava_blend_fwd(const float* rows, const int* order, const int* r
                                const float* bg, float* color, float* invdepth,
                                float* final_t, int height, int width, int tile,
                                void* stream) {
-  const int grid_x = width / tile;
-  const int n_tiles = grid_x * (height / tile);
+  const int n_tiles = blend_tiles_of(height, width, tile);
   if (n_tiles > 0) {
     blend_fwd_kernel<<<n_tiles, tile * tile, 0, static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(rows), order, ranges, bg, color, invdepth,
-        final_t, width, tile, grid_x);
+        final_t, width, tile, width / tile);
   }
   return static_cast<int>(cudaGetLastError());
 }

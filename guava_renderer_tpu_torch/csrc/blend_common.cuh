@@ -8,7 +8,10 @@
 // which moves `power` by an ulp and can flip a `< 1/255` or `< 1e-4` test on
 // a borderline pixel. So the shared expression is written with the
 // explicit-rounding intrinsics, which the compiler never re-associates or
-// contracts, and both kernels call it.
+// contracts, and every kernel calls it. It rounds each product and sum in
+// the order of the plain PyTorch versions (kernels/blend.py), which run
+// one operation at a time, so the kernels take the plain versions'
+// decisions as well.
 
 #pragma once
 
@@ -26,13 +29,15 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kTMin = 1e-4f;
 
 // s: one staged row; (fx, fy): the pixel. Writes the offsets d0, d1 and
-// power = -(a d0^2 + c d1^2)/2 - b d0 d1.
+// power = -0.5 * (a d0 d0 + c d1 d1) - b d0 d1, rounded step by step from
+// the left as the plain versions round it.
 __device__ __forceinline__ float gauss_power(const float* __restrict__ s, float fx, float fy,
                                              float& d0, float& d1) {
   d0 = __fsub_rn(s[0], fx);
   d1 = __fsub_rn(s[1], fy);
-  const float q = __fmaf_rn(__fmul_rn(s[2], d0), d0, __fmul_rn(__fmul_rn(s[4], d1), d1));
-  return __fmaf_rn(-0.5f, q, -__fmul_rn(__fmul_rn(s[3], d0), d1));
+  const float q = __fadd_rn(__fmul_rn(__fmul_rn(s[2], d0), d0),
+                            __fmul_rn(__fmul_rn(s[4], d1), d1));
+  return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(s[3], d0), d1));
 }
 
 // Transmittance after a contribution of opacity alpha.

@@ -1,0 +1,96 @@
+// The forward tile blend shared by K1 (blend.cu) and its variants K6
+// (blend_bf16.cu), K7 (blend_resident.cu) and K8 (blend_stream.cu). They
+// differ only in where a round's rows come from; `Stage` fills the shared
+// buffer with the f32 rows of instances base .. base + n - 1 of the tile's
+// run, and everything after it (the walk, the decisions, the sums, the
+// output) is this one function. So two variants given the same f32 rows
+// give the same image bit for bit, and K3 (blend_bwd.cu) replays any of
+// them from those rows.
+//
+// One CTA per tile, one thread per pixel, as in the reference's renderCUDA:
+// each thread walks its tile's instances front to back, keeping T and its
+// 33 accumulators in registers, and reads the staged rows as broadcasts. A
+// round starts with __syncthreads_count, which both frees the staging buffer
+// and ends the tile once every pixel is done. The sums use explicit
+// fused multiply-adds, so no instantiation can differ from another in
+// whether the compiler contracted them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "blend_common.cuh"
+
+namespace guava_blend {
+
+template <class Stage>
+__device__ __forceinline__ void blend_tile(const Stage& stage_rows_of, const int* __restrict__ ranges,
+                                           const float* __restrict__ bg, float* __restrict__ color,
+                                           float* __restrict__ invdepth,
+                                           float* __restrict__ final_t, int width, int tile,
+                                           int grid_x) {
+  __shared__ float4 stage[kBatch * kRow4];
+
+  const int tid = threadIdx.x;
+  const int tile_id = blockIdx.x;
+  const int px = (tile_id % grid_x) * tile + tid % tile;
+  const int py = (tile_id / grid_x) * tile + tid / tile;
+  const float fx = static_cast<float>(px);
+  const float fy = static_cast<float>(py);
+  const int start = ranges[tile_id];
+  const int end = ranges[tile_id + 1];
+
+  float acc[kChannels + 1];
+#pragma unroll
+  for (int c = 0; c <= kChannels; ++c) acc[c] = 0.0f;
+  float T = 1.0f;
+  bool done = false;
+
+  for (int base = start; base < end; base += kBatch) {
+    // Also the barrier that frees the previous round's staging buffer.
+    if (__syncthreads_count(!done) == 0) break;
+    const int n = min(kBatch, end - base);
+    stage_rows_of(stage, base, n);
+    __syncthreads();
+    if (done) continue;
+    const float* s = reinterpret_cast<const float*>(stage);
+    for (int j = 0; j < n; ++j, s += kRow) {
+      // the decisions below are replayed by blend_bwd.cu: keep them as they are
+      float d0, d1;
+      const float power = gauss_power(s, fx, fy, d0, d1);
+      if (power > 0.0f) continue;
+      const float ag = __fmul_rn(s[5], expf(power));
+      if (ag < kAlphaMin) continue;
+      const float alpha = fminf(kAlphaMax, ag);
+      const float test_t = next_t(T, alpha);
+      if (test_t < kTMin) {
+        done = true;
+        break;
+      }
+      const float w = __fmul_rn(alpha, T);
+#pragma unroll
+      for (int c = 0; c <= kChannels; ++c) acc[c] = __fmaf_rn(w, s[kGeom + c], acc[c]);
+      T = test_t;
+    }
+  }
+
+  const int64_t pix = static_cast<int64_t>(py) * width + px;
+  float4* out4 = reinterpret_cast<float4*>(color + pix * kChannels);
+#pragma unroll
+  for (int c = 0; c < kChannels; c += 4) {
+    out4[c / 4] = make_float4(__fmaf_rn(T, bg[c], acc[c]), __fmaf_rn(T, bg[c + 1], acc[c + 1]),
+                              __fmaf_rn(T, bg[c + 2], acc[c + 2]),
+                              __fmaf_rn(T, bg[c + 3], acc[c + 3]));
+  }
+  invdepth[pix] = acc[kChannels];
+  final_t[pix] = T;
+}
+
+// Launch geometry of every forward blend: a CTA of tile^2 threads per tile.
+inline int blend_tiles_of(int height, int width, int tile) {
+  return (width / tile) * (height / tile);
+}
+
+}  // namespace guava_blend

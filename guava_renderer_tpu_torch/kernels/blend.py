@@ -1,9 +1,14 @@
 """K1 and K3: the tile blend of the 32-channel Gaussian rasterizer, forward
-and backward.
+and backward, and the forward's variants K6 (bf16 rows), K7 (a resident
+table for the largest Gaussians) and K8 (a per-instance stream), whose
+backward is K3.
 
-`blend` is differentiable in `rows` and `bg`. For CUDA tensors its forward
-launches `csrc/blend.cu` and its backward `csrc/blend_bwd.cu`; for CPU
-tensors they run `blend_plain` and `blend_bwd_plain`; nothing else.
+`blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
+differentiable in `rows` and `bg`. For CUDA tensors their forwards launch
+`csrc/blend.cu`, `csrc/blend_bf16.cu`, `csrc/blend_resident.cu` and
+`csrc/blend_stream.cu`, and every backward `csrc/blend_bwd.cu`; for CPU
+tensors they run the plain versions (`blend_plain` and the `*_plain`
+functions below, `blend_bwd_plain`); nothing else.
 
 Per-Gaussian rows are (P, 44) f32:
   [x, y, conic_a, conic_b, conic_c, alpha, 0, 0 | 32 colors, invdepth, 0, 0, 0].
@@ -20,11 +25,15 @@ from . import build
 GEOM = 8
 CHANNELS = 32
 ROW = 44
+ROW_BF16 = 56      # a packed row: geometry hi and lo, 32 colors + invdepth, zeros (112 B)
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_MIN = 1e-4
-launches = 0       # K1 (forward) kernel launches so far in this process
-bwd_launches = 0   # K3 (backward) kernel launches so far in this process
+launches = 0            # K1 (forward) kernel launches so far in this process
+bwd_launches = 0        # K3 (backward) kernel launches so far in this process
+bf16_launches = 0       # K6
+resident_launches = 0   # K7
+stream_launches = 0     # K8
 
 
 def _tile_order(ranges, width, tile):
@@ -174,47 +183,148 @@ def blend_bwd_plain(rows, order, ranges, bg, color, invdepth, final_t, g_color, 
     return d_rows
 
 
-def _check_inputs(rows, order, ranges, bg, height, width, tile):
+def pack_rows_bf16(rows: torch.Tensor) -> torch.Tensor:
+    """(P, 44) f32 rows -> (P, 56) bf16 packed rows (counterpart of the JAX
+    package's `_pack_rows_bf16`, with a 112-byte row for its 128 lanes):
+    [0:8) geometry rounded to bf16 (hi), [8:16) the rest rounded to bf16
+    (lo), so that hi + lo carries ~16 mantissa bits; [16:49) the 32 colors
+    and the inverse depth rounded to bf16; zeros. Rounding is to nearest
+    even, as `.astype(bfloat16)` rounds."""
+    geom = rows[:, :GEOM]
+    hi = geom.to(torch.bfloat16)
+    lo = (geom - hi.float()).to(torch.bfloat16)
+    colors = rows[:, GEOM:GEOM + CHANNELS + 1].to(torch.bfloat16)
+    pad = hi.new_zeros((rows.shape[0], ROW_BF16 - 2 * GEOM - CHANNELS - 1))
+    return torch.cat([hi, lo, colors, pad], dim=-1).contiguous()
+
+
+def unpack_rows_bf16(packed: torch.Tensor) -> torch.Tensor:
+    """(P, 56) packed rows -> (P, 44) f32 rows holding exactly the values K6
+    blends: geometry hi + lo (one f32 addition), colors and invdepth
+    widened."""
+    geom = packed[:, :GEOM].float() + packed[:, GEOM:2 * GEOM].float()
+    colors = packed[:, 2 * GEOM:2 * GEOM + CHANNELS + 1].float()
+    pad = geom.new_zeros((packed.shape[0], ROW - GEOM - CHANNELS - 1))
+    return torch.cat([geom, colors, pad], dim=-1)
+
+
+def blend_bf16_plain(packed, order, ranges, bg, height, width, tile):
+    """K6's contract in PyTorch ops: `blend_plain` on the unpacked rows."""
+    return blend_plain(unpack_rows_bf16(packed), order, ranges, bg, height, width, tile)
+
+
+def blend_resident_plain(rows, ltable, order, ranges, bg, height, width, tile):
+    """K7's contract in PyTorch ops: `blend_plain` on the (P + L, 44) table
+    whose row P + r is ltable[r], which is what an id P + r means."""
+    return blend_plain(torch.cat([rows, ltable]), order, ranges, bg, height, width, tile)
+
+
+def blend_stream_plain(stream, ranges, bg, height, width, tile):
+    """K8's contract in PyTorch ops: `blend_plain` reading the (N, 44)
+    stream's rows in their own order."""
+    order = torch.arange(stream.shape[0], dtype=torch.int32, device=stream.device)
+    return blend_plain(stream, order, ranges, bg, height, width, tile)
+
+
+def _check_inputs(rows, order, ranges, bg, height, width, tile, row_width=ROW,
+                  row_dtype=torch.float32):
+    """Check the blend's inputs; `order` None for the stream, which has none."""
     if height % tile or width % tile or tile * tile > 1024:
         raise ValueError(f"image {height}x{width} must tile by {tile} (tile^2 <= 1024)")
     n_tiles = (height // tile) * (width // tile)
-    if rows.dim() != 2 or rows.shape[1] != ROW or rows.dtype != torch.float32:
-        raise ValueError(f"rows must be (P, {ROW}) float32, got {tuple(rows.shape)} {rows.dtype}")
-    if order.dim() != 1 or order.dtype != torch.int32:
+    if rows.dim() != 2 or rows.shape[1] != row_width or rows.dtype != row_dtype:
+        raise ValueError(f"rows must be (P, {row_width}) {row_dtype}, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if order is not None and (order.dim() != 1 or order.dtype != torch.int32):
         raise ValueError(f"order must be (N,) int32, got {tuple(order.shape)} {order.dtype}")
     if ranges.shape != (n_tiles + 1,) or ranges.dtype != torch.int32:
         raise ValueError(f"ranges must be ({n_tiles + 1},) int32, got "
                          f"{tuple(ranges.shape)} {ranges.dtype}")
     if bg.shape != (CHANNELS,) or bg.dtype != torch.float32:
         raise ValueError(f"bg must be ({CHANNELS},) float32")
-    devices = {t.device for t in (rows, order, ranges, bg)}
+    inputs = [t for t in (rows, order, ranges, bg) if t is not None]
+    devices = {t.device for t in inputs}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
     if rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rows.device}")
-    if rows.device.type == "cuda" and not all(
-            t.is_contiguous() for t in (rows, order, ranges, bg)):
+    if rows.device.type == "cuda" and not all(t.is_contiguous() for t in inputs):
         raise ValueError("blend inputs must be contiguous")
 
 
-def _forward(rows, order, ranges, bg, height, width, tile):
-    """K1 on CUDA tensors, `blend_plain` on CPU tensors."""
-    global launches
-    device = rows.device
-    if device.type == "cpu":
-        return blend_plain(rows, order, ranges, bg, height, width, tile)
+def _launch(entry, args, height, width, tile, device):
+    """Allocate the blend's outputs, launch `entry`(*args, outputs, height,
+    width, tile, stream) and raise on a launch error."""
     color = torch.empty((height, width, CHANNELS), dtype=torch.float32, device=device)
     invdepth = torch.empty((height, width, 1), dtype=torch.float32, device=device)
     final_t = torch.empty((height, width), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.library().guava_blend_fwd(
-            rows.data_ptr(), order.data_ptr(), ranges.data_ptr(), bg.data_ptr(),
-            color.data_ptr(), invdepth.data_ptr(), final_t.data_ptr(),
+        err = getattr(build.library(), entry)(
+            *args, color.data_ptr(), invdepth.data_ptr(), final_t.data_ptr(),
             height, width, tile, stream)
-    build.check(err, "guava_blend_fwd")
-    launches += 1
+    build.check(err, entry)
     return color, invdepth, final_t
+
+
+def _forward(rows, order, ranges, bg, height, width, tile):
+    """K1 on CUDA tensors, `blend_plain` on CPU tensors."""
+    global launches
+    if rows.device.type == "cpu":
+        return blend_plain(rows, order, ranges, bg, height, width, tile)
+    out = _launch("guava_blend_fwd",
+                  (rows.data_ptr(), order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
+                  height, width, tile, rows.device)
+    launches += 1
+    return out
+
+
+def forward_bf16(packed, order, ranges, bg, height, width, tile):
+    """K6 on CUDA tensors, `blend_bf16_plain` on CPU tensors: the forward
+    blend of (P, 56) packed rows. Not differentiable (see `blend_bf16`)."""
+    global bf16_launches
+    _check_inputs(packed, order, ranges, bg, height, width, tile, ROW_BF16, torch.bfloat16)
+    if packed.device.type == "cpu":
+        return blend_bf16_plain(packed, order, ranges, bg, height, width, tile)
+    out = _launch("guava_blend_bf16_fwd",
+                  (packed.data_ptr(), order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
+                  height, width, tile, packed.device)
+    bf16_launches += 1
+    return out
+
+
+def forward_resident(rows, ltable, order, ranges, bg, height, width, tile):
+    """K7 on CUDA tensors, `blend_resident_plain` on CPU tensors: the
+    forward blend where an id P + r reads ltable[r] (r < L) and any other
+    id reads rows[id]. Not differentiable (see `blend_resident`)."""
+    global resident_launches
+    _check_inputs(rows, order, ranges, bg, height, width, tile)
+    if ltable.dim() != 2 or ltable.shape[1] != ROW or ltable.dtype != torch.float32 \
+            or ltable.device != rows.device or (ltable.is_cuda and not ltable.is_contiguous()):
+        raise ValueError(f"ltable must be a contiguous (L, {ROW}) float32 tensor on "
+                         f"{rows.device}, got {tuple(ltable.shape)} {ltable.dtype}")
+    if rows.device.type == "cpu":
+        return blend_resident_plain(rows, ltable, order, ranges, bg, height, width, tile)
+    out = _launch("guava_blend_resident_fwd",
+                  (rows.data_ptr(), ltable.data_ptr(), rows.shape[0], ltable.shape[0],
+                   order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
+                  height, width, tile, rows.device)
+    resident_launches += 1
+    return out
+
+
+def forward_stream(stream, ranges, bg, height, width, tile):
+    """K8 on CUDA tensors, `blend_stream_plain` on CPU tensors: the forward
+    blend of an (N, 44) per-instance stream, tile t's rows at
+    stream[ranges[t]:ranges[t+1]]. Not differentiable (see `blend_stream`)."""
+    global stream_launches
+    _check_inputs(stream, None, ranges, bg, height, width, tile)
+    if stream.device.type == "cpu":
+        return blend_stream_plain(stream, ranges, bg, height, width, tile)
+    out = _launch("guava_blend_stream_fwd", (stream.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
+                  height, width, tile, stream.device)
+    stream_launches += 1
+    return out
 
 
 def blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth, tile):
@@ -254,30 +364,94 @@ def blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invd
     return d_rows
 
 
+def _grads(ctx, rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth):
+    """(d rows, d bg) of a forward blend whose decisions K3 replays from
+    (rows, order); `ctx.needs_input_grad` (rows, bg, ...) picks which."""
+    g_color = torch.zeros_like(color) if g_color is None else g_color.contiguous()
+    g_invdepth = torch.zeros_like(invdepth) if g_invdepth is None else g_invdepth.contiguous()
+    d_rows = d_bg = None
+    if ctx.needs_input_grad[0]:
+        d_rows = blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color,
+                           g_invdepth, ctx.tile)
+    if ctx.needs_input_grad[1]:
+        d_bg = (final_t[..., None] * g_color).sum(dim=(0, 1))
+    return d_rows, d_bg
+
+
 class _Blend(torch.autograd.Function):
     """(rows, bg) -> (color, invdepth, final_t); final_t carries no gradient."""
 
     @staticmethod
     def forward(ctx, rows, bg, order, ranges, height, width, tile):
         color, invdepth, final_t = _forward(rows, order, ranges, bg, height, width, tile)
-        ctx.save_for_backward(rows, bg, order, ranges, color, invdepth, final_t)
+        ctx.save_for_backward(rows, order, ranges, bg, color, invdepth, final_t)
         ctx.tile = tile
         ctx.mark_non_differentiable(final_t)
         return color, invdepth, final_t
 
     @staticmethod
     def backward(ctx, g_color, g_invdepth, _g_final_t):
-        rows, bg, order, ranges, color, invdepth, final_t = ctx.saved_tensors
-        g_color = torch.zeros_like(color) if g_color is None else g_color.contiguous()
-        g_invdepth = (torch.zeros_like(invdepth) if g_invdepth is None
-                      else g_invdepth.contiguous())
-        d_rows = d_bg = None
-        if ctx.needs_input_grad[0]:
-            d_rows = blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color,
-                               g_invdepth, ctx.tile)
-        if ctx.needs_input_grad[1]:
-            d_bg = (final_t[..., None] * g_color).sum(dim=(0, 1))
-        return d_rows, d_bg, None, None, None, None, None
+        return (*_grads(ctx, *ctx.saved_tensors, g_color, g_invdepth),
+                None, None, None, None, None)
+
+
+class _BlendBf16(torch.autograd.Function):
+    """K6 on the packed rows; K3 on the unpacked ones, so the gradient passes
+    straight through the packing (counterpart of `blend_tiles_bf16`)."""
+
+    @staticmethod
+    def forward(ctx, rows, bg, order, ranges, height, width, tile):
+        packed = pack_rows_bf16(rows)
+        color, invdepth, final_t = forward_bf16(packed, order, ranges, bg, height, width, tile)
+        ctx.save_for_backward(packed, order, ranges, bg, color, invdepth, final_t)
+        ctx.tile = tile
+        ctx.mark_non_differentiable(final_t)
+        return color, invdepth, final_t
+
+    @staticmethod
+    def backward(ctx, g_color, g_invdepth, _g_final_t):
+        packed, *rest = ctx.saved_tensors
+        return (*_grads(ctx, unpack_rows_bf16(packed), *rest, g_color, g_invdepth),
+                None, None, None, None, None)
+
+
+class _BlendResident(torch.autograd.Function):
+    """K7 on (rows, ltable, remapped order); K3 on (rows, original order).
+    ltable carries no gradient: its rows are rows[lids], whose gradient K3
+    already adds into rows (counterpart of `blend_tiles_vmem`)."""
+
+    @staticmethod
+    def forward(ctx, rows, bg, ltable, order, order_orig, ranges, height, width, tile):
+        color, invdepth, final_t = forward_resident(rows, ltable, order, ranges, bg, height,
+                                                    width, tile)
+        ctx.save_for_backward(rows, order_orig, ranges, bg, color, invdepth, final_t)
+        ctx.tile = tile
+        ctx.mark_non_differentiable(final_t)
+        return color, invdepth, final_t
+
+    @staticmethod
+    def backward(ctx, g_color, g_invdepth, _g_final_t):
+        return (*_grads(ctx, *ctx.saved_tensors, g_color, g_invdepth),
+                None, None, None, None, None, None, None)
+
+
+class _BlendStream(torch.autograd.Function):
+    """K8 on the stream; K3 on the f32 per-Gaussian rows and `order`, as the
+    JAX package replays on its per-Gaussian table (counterpart of
+    `blend_tiles_stream`)."""
+
+    @staticmethod
+    def forward(ctx, rows, bg, stream, order, ranges, height, width, tile):
+        color, invdepth, final_t = forward_stream(stream, ranges, bg, height, width, tile)
+        ctx.save_for_backward(rows, order, ranges, bg, color, invdepth, final_t)
+        ctx.tile = tile
+        ctx.mark_non_differentiable(final_t)
+        return color, invdepth, final_t
+
+    @staticmethod
+    def backward(ctx, g_color, g_invdepth, _g_final_t):
+        return (*_grads(ctx, *ctx.saved_tensors, g_color, g_invdepth),
+                None, None, None, None, None, None)
 
 
 def blend(rows, order, ranges, bg, height, width, tile):
@@ -286,3 +460,30 @@ def blend(rows, order, ranges, bg, height, width, tile):
     Differentiable in rows and bg."""
     _check_inputs(rows, order, ranges, bg, height, width, tile)
     return _Blend.apply(rows, bg, order, ranges, height, width, tile)
+
+
+def blend_bf16(rows, order, ranges, bg, height, width, tile):
+    """`blend` with the rows packed to bf16 for the forward (K6): the same
+    arguments and returns. The image is K1's on `unpack_rows_bf16(
+    pack_rows_bf16(rows))`; the gradient is taken there and passed to rows
+    unchanged."""
+    _check_inputs(rows, order, ranges, bg, height, width, tile)
+    return _BlendBf16.apply(rows, bg, order, ranges, height, width, tile)
+
+
+def blend_resident(rows, ltable, order, order_orig, ranges, bg, height, width, tile):
+    """`blend` with a resident table (K7): `order` has the ids of the
+    resident Gaussians remapped to P + r, where ltable (L, 44) = rows[lids]
+    and r is the Gaussian's place in lids; `order_orig` is the same order
+    with the original ids. The image equals `blend(rows, order_orig, ...)`'s."""
+    _check_inputs(rows, order_orig, ranges, bg, height, width, tile)
+    return _BlendResident.apply(rows, bg, ltable, order, order_orig, ranges, height, width,
+                                tile)
+
+
+def blend_stream(rows, stream, order, ranges, bg, height, width, tile):
+    """`blend` reading an (N, 44) per-instance stream (K8): stream[i] carries
+    the row of Gaussian order[i] (geometry exact, colors and invdepth as
+    the caller rounded them). The gradient is K3's on (rows, order)."""
+    _check_inputs(rows, order, ranges, bg, height, width, tile)
+    return _BlendStream.apply(rows, bg, stream, order, ranges, height, width, tile)

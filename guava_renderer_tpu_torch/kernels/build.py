@@ -18,8 +18,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "meshraster.cu")
-HEADERS = ("blend_common.cuh",)   # included by the sources; part of the build's digest
+SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "meshraster.cu",
+           "blend_bf16.cu", "blend_resident.cu", "blend_stream.cu", "gather_rows.cu")
+# included by the sources; part of the build's digest
+HEADERS = ("blend_common.cuh", "blend_fwd.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +46,15 @@ SIGNATURES = {
     "guava_face_gather_bwd": (_P, _P, _P, _I, _I, _P),
     # tris, inst_fid, ranges, best, depth, height, width, tile, stream
     "guava_mesh_zbuffer": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # packed, order, ranges, bg, color, invdepth, final_T, height, width, tile, stream
+    "guava_blend_bf16_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rows, ltable, P, L, order, ranges, bg, color, invdepth, final_T, height, width, tile,
+    # stream
+    "guava_blend_resident_fwd": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # stream rows, ranges, bg, color, invdepth, final_T, height, width, tile, stream
+    "guava_blend_stream_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rows, ids, out, n, stream
+    "guava_gather_rows": (_P, _P, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,5 @@
-"""32-channel Gaussian tile rasterizer, host side (counterpart of the
-default path of `guava_renderer_tpu/ops/gsplat.py`).
+"""32-channel Gaussian tile rasterizer, host side (counterpart of
+`guava_renderer_tpu/ops/gsplat.py`).
 
   stage 1  project (gsplat_project.py)
   stage 2  tile binning in PyTorch ops, uncapped as in the CUDA reference
@@ -8,21 +8,33 @@ default path of `guava_renderer_tpu/ops/gsplat.py`).
            in Gaussian-id order, one stable sort of the int64 key
            `tile << 32 | float_bits(depth)`, tile ranges by bincount+cumsum.
            Depth ties resolve by Gaussian id, as the JAX presort path does.
-  stage 3  the tile blend, kernel K1 (kernels/blend.py).
+  stage 3  the tile blend: kernel K1 (kernels/blend.py), or one of its
+           variants, as the settings choose:
+             bf16_rows                    K6 on rows packed to bf16;
+             size_classes + vmem_classes  K7, the largest Gaussians' rows
+                                          from a resident table that K9
+                                          (kernels/gather_rows.py) gathers;
+             streaming                    K8 on a per-instance stream.
 
-`rasterize` = `rasterize_prep` (stages 1-2) + `rasterize_blend` (stage 3).
+`rasterize` = `rasterize_prep` (stages 1-2) + `rasterize_blend` (stage 3)
+on the default and bf16 paths; the resident and streaming paths are
+`rasterize` alone, as in the JAX package.
 
 `rasterize` is differentiable in means, colors, opacities, scales, quats and
 bg: binning runs on detached values (which tiles a Gaussian reaches carries
 no gradient, as in the JAX package), the blend rows stay in the graph, and
-the blend's backward is kernel K3.
+the backward of every blend is kernel K3.
 
 The JAX package caps each Gaussian's duplication (a static instance-sort
-size is a TPU requirement); on every configuration where its cap truncates
-nothing the two instance sets are equal, and where it would truncate, this
-port renders the uncapped composite. Its TPU scheduling knobs (duplication
-caps, size classes, tile cull, DMA banks, streaming, bf16 rows, ...) have
-no counterpart here.
+size is a TPU requirement), by `max_tiles_per_gaussian` and by the caps of
+`size_classes`; on every configuration where the caps truncate nothing the
+two instance sets are equal, and where they would truncate, this port
+renders the uncapped composite. So `size_classes` decides here only which
+Gaussians are resident (the first `vmem_classes` classes of the area
+ranking), and without `vmem_classes` it renders exactly what the default
+path renders. The JAX package's other TPU scheduling knobs (chunk, caps,
+tile cull, presort, DMA banks, instance budget, exit cadence, ...) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -32,14 +44,66 @@ from typing import NamedTuple
 import torch
 
 from ..core.cameras import Camera
-from ..kernels.blend import ALPHA_MIN, CHANNELS, ROW, blend
+from ..kernels.blend import (
+    ALPHA_MIN, CHANNELS, GEOM, ROW, blend, blend_bf16, blend_resident, blend_stream)
+from ..kernels.gather_rows import gather_rows
 from .gsplat_project import ProjectedGaussians, project_gaussians, tile_rect
+
+# The largest resident table the JAX package accepts (8 MB of its 512-byte
+# rows); the port accepts the same settings.
+MAX_RESIDENT_ROWS = 16384
 
 
 class RasterizeSettings(NamedTuple):
     tile: int = 16               # pixels per tile side
     scale_modifier: float = 1.0
     antialiasing: bool = False
+    # forward blend on rows packed to bf16 (K6): geometry as bf16 hi + lo
+    # pairs, colors and invdepth as bf16; the backward replays on the
+    # unpacked rows, and the gradient passes straight through the packing
+    bf16_rows: bool = False
+    # ((count, cap), ...): classes of the Gaussians ranked by descending
+    # tile-rect area. The port bins uncapped, so the caps truncate nothing;
+    # the classes only pick the Gaussians that vmem_classes keeps resident
+    size_classes: tuple = ()
+    # the first vmem_classes classes blend from a resident table (K7, built
+    # by K9); needs size_classes
+    vmem_classes: int = 0
+    # forward blend from a per-instance stream of rows in the sorted order
+    # (K8): geometry exact, colors and invdepth rounded to bf16
+    streaming: bool = False
+
+
+def _check_settings(settings: RasterizeSettings) -> None:
+    """Raise the JAX package's ValueErrors for the settings it refuses."""
+    if (settings.vmem_classes or settings.streaming) and settings.bf16_rows:
+        raise ValueError(
+            "bf16_rows covers the default (row-gather) blend path only; "
+            "vmem_classes/streaming keep their f32 tables")
+    if settings.vmem_classes and not settings.size_classes:
+        raise ValueError("vmem_classes requires size_classes")
+
+
+def resident_count(settings: RasterizeSettings, P: int) -> int:
+    """L: how many of P Gaussians the first `vmem_classes` size classes hold."""
+    start = 0
+    for count, _cap in settings.size_classes[:settings.vmem_classes]:
+        count = min(int(count), P - start)
+        if count <= 0:
+            break
+        start += count
+    return start
+
+
+def _tile_counts(proj: ProjectedGaussians, width: int, height: int, tile: int):
+    """(x0, y0, rw, rh, counts): each Gaussian's tile rect and the instances
+    it bins (0 for one that does not contribute)."""
+    contributing = proj.valid & (proj.alpha >= ALPHA_MIN)
+    x0, y0, x1, y1 = tile_rect(proj.mean2d, proj.radius_bin, width, height, tile)
+    rw = (x1 - x0).long()
+    rh = (y1 - y0).long()
+    counts = torch.where(contributing & (rw > 0) & (rh > 0), rw * rh, 0)
+    return x0, y0, rw, rh, counts
 
 
 def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
@@ -49,11 +113,7 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
     device = proj.mean2d.device
     gx = (width + tile - 1) // tile
     n_tiles = gx * ((height + tile - 1) // tile)
-    contributing = proj.valid & (proj.alpha >= ALPHA_MIN)
-    x0, y0, x1, y1 = tile_rect(proj.mean2d, proj.radius_bin, width, height, tile)
-    rw = (x1 - x0).long()
-    rh = (y1 - y0).long()
-    counts = torch.where(contributing & (rw > 0) & (rh > 0), rw * rh, 0)
+    x0, y0, rw, rh, counts = _tile_counts(proj, width, height, tile)
     ends = torch.cumsum(counts, 0)
     n = int(ends[-1]) if ends.numel() else 0   # the one host sync of binning
 
@@ -69,6 +129,48 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
     ranges = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)
     ranges[1:] = torch.cumsum(torch.bincount(tiles, minlength=n_tiles), 0)
     return ranges.to(torch.int32), order
+
+
+def resident_ids(proj: ProjectedGaussians, width: int, height: int, tile: int,
+                 n_resident: int) -> torch.Tensor:
+    """(L,) i32 ids of the n_resident Gaussians with the largest tile rects:
+    the first L of all P ranked by descending (area + 1) << id_bits | id,
+    a Gaussian that bins nothing counting as area -1, so ties go to the
+    larger id (the JAX package's size-class ranking, `_bin_nopresort`)."""
+    counts = _tile_counts(proj, width, height, tile)[-1]
+    P = counts.shape[0]
+    id_bits = max(1, (P - 1).bit_length())
+    ids = torch.arange(P, device=counts.device)
+    key = (torch.where(counts > 0, counts + 1, 0) << id_bits) | ids
+    top = torch.topk(key, n_resident).values
+    return (top & ((1 << id_bits) - 1)).to(torch.int32)
+
+
+def remap_resident(order: torch.Tensor, lids: torch.Tensor, P: int) -> torch.Tensor:
+    """`order` with each instance of a resident Gaussian, lids[r], given the
+    id P + r, which K7 reads from the resident table's row r."""
+    rank = torch.full((P,), -1, dtype=torch.int32, device=order.device)
+    rank[lids.long()] = torch.arange(lids.shape[0], dtype=torch.int32, device=order.device)
+    r = rank[order.long()]
+    return torch.where(r >= 0, P + r, order)
+
+
+def round_colors_bf16(rows: torch.Tensor) -> torch.Tensor:
+    """Rows with the 32 colors and the inverse depth rounded to bf16 (to
+    nearest even) and stored back as f32: the values the JAX package's
+    stream carries (`_pack_colors_bf16`, `_unpack_colors_bf16`)."""
+    cols = slice(GEOM, GEOM + CHANNELS + 1)
+    out = rows.clone()
+    out[:, cols] = rows[:, cols].to(torch.bfloat16).float()
+    return out
+
+
+def stream_rows(rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """(N, 44) per-instance stream for K8: stream[i] is Gaussian order[i]'s
+    row with geometry exact and colors rounded to bf16. The JAX package
+    carries this payload through its instance sort; a gather after the
+    sort gives the same rows. Detached: the stream carries no gradient."""
+    return round_colors_bf16(rows.detach()).index_select(0, order.long())
 
 
 def pack_rows(proj: ProjectedGaussians, colors: torch.Tensor) -> torch.Tensor:
@@ -91,27 +193,44 @@ class RasterPrep(NamedTuple):
     radius: torch.Tensor   # (P,) projected pixel radius
 
 
-def rasterize_prep(means3d, colors, opacities, scales, quats, cam: Camera,
-                   settings: RasterizeSettings = RasterizeSettings()) -> RasterPrep:
-    """Projection + binning + blend rows (stages 1 and 2)."""
+def _project_and_bin(means3d, colors, opacities, scales, quats, cam: Camera,
+                     settings: RasterizeSettings):
+    """-> (detached projection, RasterPrep)."""
     proj = project_gaussians(means3d, scales, quats, opacities, cam,
                              settings.scale_modifier, settings.antialiasing)
+    proj_sg = ProjectedGaussians(*(t.detach() for t in proj))
     with torch.no_grad():
-        ranges, order = bin_gaussians(ProjectedGaussians(*(t.detach() for t in proj)),
-                                      cam.width, cam.height, settings.tile)
-    return RasterPrep(pack_rows(proj, colors), order, ranges, proj.radius)
+        ranges, order = bin_gaussians(proj_sg, cam.width, cam.height, settings.tile)
+    return proj_sg, RasterPrep(pack_rows(proj, colors), order, ranges, proj.radius)
+
+
+def rasterize_prep(means3d, colors, opacities, scales, quats, cam: Camera,
+                   settings: RasterizeSettings = RasterizeSettings()) -> RasterPrep:
+    """Projection + binning + blend rows (stages 1 and 2) of the default and
+    bf16 paths."""
+    if settings.vmem_classes or settings.streaming:
+        raise ValueError(
+            "rasterize_prep covers the default blend path only "
+            "(vmem_classes/streaming keep their fused form in rasterize)")
+    return _project_and_bin(means3d, colors, opacities, scales, quats, cam, settings)[1]
+
+
+def _layout(color, invdepth, channels_first):
+    if channels_first:
+        return color.permute(2, 0, 1), invdepth.permute(2, 0, 1)
+    return color, invdepth
 
 
 def rasterize_blend(prep: RasterPrep, bg: torch.Tensor, height: int, width: int,
                     settings: RasterizeSettings = RasterizeSettings(),
                     channels_first: bool = True):
-    """Blend a prepped frame (stage 3, kernel K1; its backward is K3).
-    -> (color, invdepth) in the layouts `rasterize` returns them."""
-    color, invdepth, _ = blend(prep.rows, prep.order, prep.ranges, bg, height, width,
-                               settings.tile)
-    if channels_first:
-        return color.permute(2, 0, 1), invdepth.permute(2, 0, 1)
-    return color, invdepth
+    """Blend a prepped frame (stage 3: K1, or K6 with bf16_rows; the
+    backward is K3). -> (color, invdepth) in the layouts `rasterize` returns
+    them."""
+    fn = blend_bf16 if settings.bf16_rows else blend
+    color, invdepth, _ = fn(prep.rows, prep.order, prep.ranges, bg, height, width,
+                            settings.tile)
+    return _layout(color, invdepth, channels_first)
 
 
 def rasterize(
@@ -128,6 +247,27 @@ def rasterize(
     """means3d (P,3), colors (P,32), opacities (P,1), scales (P,3), quats
     (P,4) wxyz, camera, bg (32,) -> (color (32,H,W), radii (P,), invdepth
     (1,H,W)); with channels_first=False (color (H,W,32), radii, invdepth (H,W,1))."""
-    prep = rasterize_prep(means3d, colors, opacities, scales, quats, cam, settings)
-    color, invdepth = rasterize_blend(prep, bg, cam.height, cam.width, settings, channels_first)
+    _check_settings(settings)
+    H, W, tile = cam.height, cam.width, settings.tile
+    if not settings.vmem_classes and not settings.streaming:
+        prep = rasterize_prep(means3d, colors, opacities, scales, quats, cam, settings)
+        color, invdepth = rasterize_blend(prep, bg, H, W, settings, channels_first)
+        return color, prep.radius, invdepth
+
+    P = means3d.shape[0]
+    L = resident_count(settings, P)
+    if L > MAX_RESIDENT_ROWS:
+        raise ValueError(f"vmem_classes table {L} rows exceeds the limit of "
+                         f"{MAX_RESIDENT_ROWS} rows: fewer/smaller classes")
+    proj_sg, prep = _project_and_bin(means3d, colors, opacities, scales, quats, cam, settings)
+    # the resident table, the remapped ids and the stream carry no gradient
+    if settings.vmem_classes:
+        lids = resident_ids(proj_sg, W, H, tile, L)
+        color, invdepth, _ = blend_resident(prep.rows, gather_rows(prep.rows, lids),
+                                            remap_resident(prep.order, lids, P), prep.order,
+                                            prep.ranges, bg, H, W, tile)
+    else:
+        color, invdepth, _ = blend_stream(prep.rows, stream_rows(prep.rows, prep.order),
+                                          prep.order, prep.ranges, bg, H, W, tile)
+    color, invdepth = _layout(color, invdepth, channels_first)
     return color, prep.radius, invdepth

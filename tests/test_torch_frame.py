@@ -96,12 +96,13 @@ def _targets(sc):
     return out
 
 
-def _jax_frames(jsc, params, targets):
+def _jax_frames(jsc, params, targets, settings=None):
     avatar = prune_avatar(jsc.avatar, 0.001)
     plan = jfg.build_face_sort_plan(np.asarray(avatar.uv_binding_face), np.asarray(avatar.uv_valid))
     avatar = sort_avatar_by_plan(avatar, plan)
     cfaces = jnp.asarray(jfg.compact_faces(plan, np.asarray(jsc.faces)))
-    settings = JSettings(tile=TILE, max_tiles_per_gaussian=(jsc.size // TILE) ** 2)
+    if settings is None:
+        settings = JSettings(tile=TILE, max_tiles_per_gaussian=(jsc.size // TILE) ** 2)
     refiner = JRefiner(image_size=jsc.size, small=True, **REFINER)
     tanfov = jnp.asarray(1.0 / jbench.INVTANFOV, jnp.float32)
 
@@ -130,7 +131,7 @@ def _jax_frames(jsc, params, targets):
 def test_frame_pipeline_vs_jax_frame(scenes):
     jsc, tsc = scenes
     refiner = JRefiner(image_size=jsc.size, small=True, **REFINER)
-    params = refiner.init(jax.random.PRNGKey(0), jnp.zeros((1, jsc.size, jsc.size, 32)))
+    params = jax.jit(refiner.init)(jax.random.PRNGKey(0), jnp.zeros((1, jsc.size, jsc.size, 32)))
     targets = _targets(tsc)
     want, jplan = _jax_frames(jsc, params, targets)
 
