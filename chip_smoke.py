@@ -32,7 +32,17 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      version and against K1 at frame 0, 20 frames through render_frame
      under each setting, a 64^2 frame GPU vs CPU, the frame's gradient
      against the default path's, a 32^2 bf16 training step GPU vs CPU and
-     two full-width training steps under each setting.
+     two full-width training steps under each setting;
+ 12. the probe tools at their defaults (K1p in tools/ee_probe.py, T2
+     tools/dma_bench.py over every variant, T3 and the payload sorts
+     tools/sort_payload_bench.py, the seven T1 copy probes
+     tools/mosaic_probe.py, each in a subprocess), with launch counts; then
+     K1p against its plain version at five (chunk, exit_every) and bit-equal
+     to K1, K1 and K1p timed in turns, every T2 variant against its plain
+     version and its staged rows against index_select (T2 timed as the
+     copies alone and with its in-order sum), T3 against table.sum(0) and
+     the float64 sum; each T1 probe beside one PyTorch call that writes the
+     same values.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -71,6 +81,9 @@ from guava_renderer_tpu_torch.cli.trainer_loop import run_training  # noqa: E402
 from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
+from guava_renderer_tpu_torch.kernels import copy_probe as kt1  # noqa: E402
+from guava_renderer_tpu_torch.kernels import rowcopy as kt2  # noqa: E402
+from guava_renderer_tpu_torch.kernels import stream_sum as kt3  # noqa: E402
 from guava_renderer_tpu_torch.kernels import facegather as k2  # noqa: E402
 from guava_renderer_tpu_torch.kernels import gather_rows as k9  # noqa: E402
 from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
@@ -83,6 +96,8 @@ from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import bin_mesh, rasterize_mesh  # noqa: E402
 from guava_renderer_tpu_torch.testing import make_micro_pipeline  # noqa: E402
+from guava_renderer_tpu_torch.tools import (  # noqa: E402
+    device_ms, dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from guava_renderer_tpu_torch.train.losses import LossConfig, OptimizationLoss  # noqa: E402
 from guava_renderer_tpu_torch.train.lpips import LPIPS, init_lpips_  # noqa: E402
@@ -151,6 +166,17 @@ SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the b
 # bins at most this many (Gaussian, tile) instances
 INSTANCE_BUDGET = 64_000_000
 CREATE_LIMIT_MS = 1000.0       # the reference's "sub-second" creation
+# phase 12: K1p's (chunk, exit_every) held against its plain version; every T2 variant
+# (name:banks); T2's scalar against its plain version (the same f32 adds in the same
+# order: equal, held to this relative tolerance) and T3 against table.sum(0) (other
+# summation orders over 809,984 rows) and against the float64 sum (the kernel's f32 order,
+# run sums of ~6,144 rows then 132 partials, emulated in numpy on such a table: 6.0e-7;
+# a row of the table dropped or added moves a column by up to 2.5e-6)
+K1P_SETTINGS = ((32, 1), (32, 4), (32, 0), (64, 1), (256, 1))
+T2_VARIANTS = "contig:1,rows:1,rows:4,rows_pipe:1,contig_pipe:1,rows_pipe_bf16:1,rows_pipe_2rows:1"
+T2_RTOL = 1e-6
+T3_RTOL = 1e-5
+T3_F64_RTOL = 2e-6
 
 
 def say(phase, msg):
@@ -158,18 +184,10 @@ def say(phase, msg):
 
 
 def cuda_ms(fn, reps=10, warmup=2):
-    """Median device time of fn() over reps runs (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of fn() over reps runs (CUDA events), each queued
+    behind a device spin so that the host's time to reach the launch is not
+    counted (`tools.device_ms`)."""
+    return device_ms(fn, DEV, reps, warmup)
 
 
 def k1_pairs(rows, order, ranges, tile):
@@ -693,6 +711,186 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames)
               err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
         entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
               k9_plain_ms, k9_bound, "bytes", k9_lib_ms),
+    ]
+
+
+def t1_bytes(name):
+    """Bytes a T1 probe must move: what it copies and what it writes."""
+    at = (torch.zeros(kt1.LOOP_ROWS, dtype=torch.int32) if name == "row1_loop"
+          else mosaic_probe.OFFSETS[name])
+    c = kt1.plan(name, at)
+    return c.n_seg * c.seg_bytes + math.prod(c.out_shape) * 4
+
+
+def probe_tools(n_instances, visited, contrib):
+    """Phase 12 (see the module docstring); (visited, contrib) are the bench
+    frame's pairs from phase 3, whose instance count the tools' frame must
+    match. -> the kernels-line entries of K1p, T1, T2 and T3."""
+    # 12.1 the main path: the four tools, with every count at 0 just before them
+    k1.probe_launches = kt1.launches = kt2.launches = kt3.launches = 0
+    t0 = time.perf_counter()
+    ee = ee_probe.main(["--iters", "20", "--stages"])
+    dma = dma_bench.main(["--variants", T2_VARIANTS, "--iters", "20"])
+    sp = sort_payload_bench.main(["--iters", "10"])
+    t1 = mosaic_probe.main(["--iters", "20"])
+    t1_off = mosaic_probe.main(["--iters", "20", "--unaligned", "--exp", "idx32,idx1024"])
+    launches = {"K1p": k1.probe_launches, "T1": sum(r.get("launches", 0) for r in t1),
+                "T2": kt2.launches, "T3": kt3.launches}
+    tools_s = time.perf_counter() - t0
+    if not all(launches.values()):
+        raise SystemExit(f"probe tools: a kernel was not launched: {launches}")
+    failed = [r for r in t1 + t1_off if not r["ok"]]
+    if failed:
+        raise SystemExit(f"T1 probes failed: {failed}")
+    if not all(sp["sorted"].values()):
+        raise SystemExit(f"payload sorts not sorted: {sp['sorted']}")
+    say(12, f"the four tools at their defaults in {tools_s:.1f} s; launches {launches}")
+
+    # 12.2 K1p against its plain version (one call: the last deaths give every count) and K1
+    prep = ee["prep"]
+    rows, order, ranges = prep.rows, prep.order, prep.ranges
+    if order.shape[0] != n_instances:
+        raise SystemExit(f"ee_probe's frame bins {order.shape[0]} instances, phase 3's "
+                         f"{n_instances}")
+    bg = torch.zeros(32, device=DEV)
+    img = (SIZE, SIZE, TILE)
+    with torch.no_grad():
+        ref1 = k1.blend(rows, order, ranges, bg, *img)
+        (*want_img, last), p_ms = timed_once(
+            lambda: k1.blend_probe_plain(rows, order, ranges, bg, *img))
+        errp, lines = 0.0, []
+        for ch, ee_ in K1P_SETTINGS:
+            *got, cnt = k1.blend_probe(rows, order, ranges, bg, *img, ch, ee_)
+            want_cnt = k1.chunks_run(last, ranges, ch, ee_)
+            if not torch.equal(cnt, want_cnt):
+                raise SystemExit(f"K1p (chunk {ch}, exit_every {ee_}) counts differ from its "
+                                 f"plain version's on {int((cnt != want_cnt).sum())} tiles")
+            if not all(torch.equal(g, w) for g, w in zip(got, ref1)):
+                raise SystemExit(f"K1p (chunk {ch}, exit_every {ee_}) image differs from K1's")
+            errp = max(errp, *(float((g - w).abs().max()) for g, w in zip(got, want_img)))
+            lines.append(f"({ch}, {ee_}) {int(cnt.sum())} of "
+                         f"{int(k1.chunks_run(last, ranges, ch, 0).sum())}")
+        if not errp <= K1_TOL:
+            raise SystemExit(f"K1p disagrees with its plain version: max abs {errp} > {K1_TOL}")
+        turns = {"K1": [], "K1p": []}
+        for _ in range(3):
+            turns["K1"].append(cuda_ms(lambda: k1.blend(rows, order, ranges, bg, *img)))
+            turns["K1p"].append(cuda_ms(lambda: k1.blend_probe(rows, order, ranges, bg, *img,
+                                                               256, 1)))
+        k1_ms, kp_ms = (statistics.median(turns[k]) for k in ("K1", "K1p"))
+        kp_bound, kp_by, kp_bytes = blend_bound(rows.shape[0] * k1.ROW * 4, order.shape[0],
+                                                visited, contrib)
+        n_tiles_exit = int((k1.chunks_run(last, ranges, 32, 1)
+                            < k1.chunks_run(last, ranges, 32, 0)).sum())
+        say(12, f"K1p: counts equal to the plain version's and the image bit-equal to K1's at "
+                f"every (chunk, exit_every); rounds run of total: {', '.join(lines)}; tiles that "
+                f"exit early at (32, 1): {n_tiles_exit} of {ranges.numel() - 1}; max abs vs plain "
+                f"{errp:.3g} (tol {K1_TOL}); in turns (median of 3 rounds of 10) K1 {k1_ms:.4f} "
+                f"ms, K1p (256, 1) {kp_ms:.4f} ms ({kp_ms / k1_ms:.3f} x K1); plain {p_ms:.1f} ms "
+                f"(one call), bound {kp_bound:.4f} ms by {kp_by}")
+        del ref1, want_img, got
+
+    # 12.3 T2: every variant against its plain version, its staged rows against index_select
+    table, idx2d = dma_bench.build(dma[0]["rows"], dma[0]["p_rows"], DEV)
+    idx = idx2d.reshape(-1)
+    t2 = []
+    for res in dma:
+        name, banks, n = res["name"], res["banks"], res["rows"]
+        t = kt2.variant_table(table, name)
+        want, _ = kt2.row_copy_plain(t, idx, name, n)
+        got = res["value"]
+        rel = abs(got - float(want)) / abs(float(want))
+        if not rel <= T2_RTOL:
+            raise SystemExit(f"T2 {name}:{banks} gives {got}, its plain version {float(want)}")
+        _, staged = kt2.row_copy(t, idx, name, banks, n, check=True)
+        ids = kt2.staged_ids(name, idx, n)
+        if not torch.equal(staged, torch.index_select(t, 0, ids)):
+            raise SystemExit(f"T2 {name}:{banks}: staged rows differ from index_select's")
+        plain_ms = cuda_ms(lambda: kt2.row_copy_plain(t, idx, name, n), reps=3, warmup=0)
+        lib_ms = cuda_ms(lambda: torch.index_select(t, 0, ids), reps=20)
+        summed_ms = cuda_ms(lambda: kt2.row_copy(t, idx, name, banks, n), reps=20)
+        # a row the ids name twice need be read once: contig reads 32,768 distinct rows,
+        # the random ids ~63% of the table
+        distinct = int(torch.unique(ids).numel())
+        bound = distinct * res["row_bytes"] / HBM_BYTES_PER_S * 1e3
+        t2.append({"name": name, "banks": banks, "rows": n, "row_bytes": res["row_bytes"],
+                   "distinct_rows": distinct, "ms": res["ms"], "ns_row": res["ns_row"],
+                   "gbps": res["gbps"],
+                   "with_sum_ms": summed_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "library_ms": lib_ms, "max_abs_err": abs(got - float(want))})
+        del staged
+    say(12, f"T2 row gather, {dma[0]['rows']} rows, each equal to its plain version (rtol "
+            f"{T2_RTOL}) with its staged rows equal to index_select's; the copies alone, then "
+            f"with the in-order sum: "
+            + "; ".join(f"{v['name']}:{v['banks']} {v['ms']:.4f} ms {v['ns_row']:.4f} ns/row "
+                        f"{v['gbps']:.0f} GB/s, {v['with_sum_ms']:.4f} ms (bound "
+                        f"{v['bound_ms']:.4f} by {v['distinct_rows']} distinct rows, "
+                        f"index_select {v['library_ms']:.4f}, plain "
+                        f"{v['plain_ms']:.1f})" for v in t2))
+    del table, idx2d, idx
+
+    # 12.4 T3 against table.sum(0)
+    st = sp["stream"]
+    tab, out3 = st["table"], st["out"]
+    lib3 = tab.sum(0, keepdim=True)
+    rel3 = float(((out3 - lib3).abs() / lib3.abs()).max())
+    if not rel3 <= T3_RTOL:
+        raise SystemExit(f"T3 disagrees with table.sum(0): relative {rel3} > {T3_RTOL}")
+    ref64 = tab.double().sum(0, keepdim=True)
+    rel64 = float(((out3.double() - ref64).abs() / ref64.abs()).max())
+    del ref64
+    if not rel64 <= T3_F64_RTOL:
+        raise SystemExit(f"T3 disagrees with the float64 sum: relative {rel64} > {T3_F64_RTOL}")
+    t3_plain_ms = cuda_ms(lambda: kt3.stream_sum_plain(tab))
+    t3_lib_ms = cuda_ms(lambda: tab.sum(0, keepdim=True))
+    t3_bound = st["bytes"] / HBM_BYTES_PER_S * 1e3
+    d = sp["decision"]
+    say(12, f"T3 block stream: {tab.shape[0]} rows ({st['bytes'] / 1e6:.1f} MB), relative "
+            f"{rel3:.3g} of table.sum(0) (tol {T3_RTOL}), {rel64:.3g} of the float64 sum (tol "
+            f"{T3_F64_RTOL}); kernel {st['ms']:.4f} ms "
+            f"({st['bytes'] / st['ms'] / 1e9:.2f} TB/s), plain {t3_plain_ms:.4f} ms, "
+            f"table.sum(0) {t3_lib_ms:.4f} ms, bound {t3_bound:.4f} ms; sorts "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in sp["sorts"].items())
+            + f"; decision: payload {d['payload_ms']:.4f} ms vs gather {d['gather_ms']:.4f} ms "
+              f"at {d['gather_ns_row']:.4f} ns/row")
+    err3 = float((out3 - lib3).abs().max())
+    t3_ms = st["ms"]
+    del tab, out3, lib3, st, sp["stream"]
+
+    # T1: the probes' own lines carry their numbers
+    probes = []
+    for r in t1 + t1_off:
+        probes.append({"name": r["name"], "route": r["route"], "launches": r["launches"],
+                       "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                       "library_ms": r["library_ms"],
+                       "bound_ms": t1_bytes(r["name"]) / HBM_BYTES_PER_S * 1e3})
+    say(12, "T1 copy probes, each equal to its plain version: "
+            + "; ".join(f"{p['name']} {p['route']} {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, "
+                        f"library {p['library_ms']:.4f})" for p in probes))
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, bound, by, lib, **extra):
+        return {"name": name, "route": "cuda", "source": f"guava_renderer_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                **extra}
+
+    main_probes = probes[:len(t1)]
+    return [
+        entry("K1p tile blend with round counts (256, 1)", "blend_probe.cu",
+              "guava_renderer_tpu/ops/gsplat.py:1714", "K1p", errp, kp_ms, p_ms, kp_bound, kp_by,
+              None, ee_variants=ee["variants"]),
+        entry("T1 copy probes (sum of the seven)", "copy_probe.cu", "tools/mosaic_probe.py:44",
+              "T1", max(p["max_abs_err"] for p in probes),
+              sum(p["ms"] for p in main_probes), sum(p["plain_ms"] for p in main_probes),
+              sum(p["bound_ms"] for p in main_probes), "bytes",
+              sum(p["library_ms"] for p in main_probes), probes=probes),
+        entry("T2 row-gather bench (sum of the variants)", "dma_bench.cu",
+              "tools/dma_bench.py:128", "T2", max(v["max_abs_err"] for v in t2),
+              sum(v["ms"] for v in t2), sum(v["plain_ms"] for v in t2),
+              sum(v["bound_ms"] for v in t2), "bytes", sum(v["library_ms"] for v in t2),
+              variants=t2),
+        entry("T3 block stream", "stream_sum.cu", "tools/sort_payload_bench.py:133", "T3", err3,
+              t3_ms, t3_plain_ms, t3_bound, "bytes", t3_lib_ms, sorts_ms=sp["sorts"], decision=d),
     ]
 
 
@@ -1285,6 +1483,11 @@ def main():
     # ---- 11. the raster variants ----
     variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq)
 
+    # ---- 12. the probe tools ----
+    t12 = time.perf_counter()
+    probe_kernels = probe_tools(N, visited, contrib)
+    say(12, f"phase 12 in {time.perf_counter() - t12:.1f} s")
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
@@ -1313,10 +1516,12 @@ def main():
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None},
         *variant_kernels,
+        *probe_kernels,
     ]
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise SystemExit(f"non-finite timing in {kernels}")
-    say("done", f"{time.perf_counter() - t_start:.1f} s")
+    # the card again, beside the numbers that follow (the head of a long log may be cut)
+    say("done", f"{time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

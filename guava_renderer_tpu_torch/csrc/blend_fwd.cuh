@@ -14,6 +14,13 @@
 // and ends the tile once every pixel is done. The sums use explicit
 // fused multiply-adds, so no instantiation can differ from another in
 // whether the compiler contracted them.
+//
+// `Walk` sets the rounds: how many rows each stages, before which rounds the
+// tile tests whether every pixel is done, and what it does with the count
+// of rounds it ran. K1 and its variants take `FullRounds` (kBatch rows, the
+// test before every round, no count); the probe K1p (blend_probe.cu) stages
+// fewer rows a round, tests more rarely and writes the count. A pixel's
+// decisions do not depend on the rounds, so every Walk gives the same image.
 
 #pragma once
 
@@ -25,12 +32,19 @@
 
 namespace guava_blend {
 
-template <class Stage>
+// The rounds of K1 and its variants: kBatch rows each, the exit test before each.
+struct FullRounds {
+  __device__ int rows_a_round() const { return kBatch; }
+  __device__ bool exit_test_before(int) const { return true; }
+  __device__ void ran(int) const {}
+};
+
+template <class Stage, class Walk = FullRounds>
 __device__ __forceinline__ void blend_tile(const Stage& stage_rows_of, const int* __restrict__ ranges,
                                            const float* __restrict__ bg, float* __restrict__ color,
                                            float* __restrict__ invdepth,
                                            float* __restrict__ final_t, int width, int tile,
-                                           int grid_x) {
+                                           int grid_x, const Walk& walk = Walk{}) {
   __shared__ float4 stage[kBatch * kRow4];
 
   const int tid = threadIdx.x;
@@ -48,10 +62,16 @@ __device__ __forceinline__ void blend_tile(const Stage& stage_rows_of, const int
   float T = 1.0f;
   bool done = false;
 
-  for (int base = start; base < end; base += kBatch) {
+  const int batch = walk.rows_a_round();
+  int round = 0;
+  for (int base = start; base < end; base += batch, ++round) {
     // Also the barrier that frees the previous round's staging buffer.
-    if (__syncthreads_count(!done) == 0) break;
-    const int n = min(kBatch, end - base);
+    if (walk.exit_test_before(round)) {
+      if (__syncthreads_count(!done) == 0) break;
+    } else {
+      __syncthreads();
+    }
+    const int n = min(batch, end - base);
     stage_rows_of(stage, base, n);
     __syncthreads();
     if (done) continue;
@@ -86,6 +106,7 @@ __device__ __forceinline__ void blend_tile(const Stage& stage_rows_of, const int
   }
   invdepth[pix] = acc[kChannels];
   final_t[pix] = T;
+  walk.ran(round);
 }
 
 // Launch geometry of every forward blend: a CTA of tile^2 threads per tile.

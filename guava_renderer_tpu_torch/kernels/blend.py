@@ -1,7 +1,9 @@
 """K1 and K3: the tile blend of the 32-channel Gaussian rasterizer, forward
 and backward, and the forward's variants K6 (bf16 rows), K7 (a resident
 table for the largest Gaussians) and K8 (a per-instance stream), whose
-backward is K3.
+backward is K3; and K1p (`blend_probe`, `csrc/blend_probe.cu`), K1 with a
+count of the rounds each tile ran, for the early-exit probe
+(`tools/ee_probe.py`).
 
 `blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
 differentiable in `rows` and `bg`. For CUDA tensors their forwards launch
@@ -34,6 +36,8 @@ bwd_launches = 0        # K3 (backward) kernel launches so far in this process
 bf16_launches = 0       # K6
 resident_launches = 0   # K7
 stream_launches = 0     # K8
+probe_launches = 0      # K1p
+MAX_PROBE_CHUNK = 256   # K1p stages at most K1's round of rows (csrc/blend_common.cuh:kBatch)
 
 
 def _tile_order(ranges, width, tile):
@@ -58,6 +62,34 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
     are visited in descending instance count, which makes the tiles still
     running at step i a prefix of that order.
     """
+    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=False)
+
+
+def blend_probe_plain(rows, order, ranges, bg, height, width, tile):
+    """`blend_plain`'s (color, invdepth, final_t) and last_death (gy, gx)
+    int32: per tile, the instance (0 = the tile's first) at which its last
+    pixel finished, i.e. hit T * (1 - alpha) < 1e-4 on a contributing
+    instance, or -1 where some pixel never finishes. `chunks_run` turns it
+    into K1p's count for any (chunk, exit_every)."""
+    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=True)
+
+
+def chunks_run(last_death, ranges, chunk, exit_every):
+    """(gy, gx) int32 rounds a tile of K1p (and of the JAX blend_probe) runs:
+    ceil(n / chunk) where exit_every is 0 or some pixel never finishes,
+    else min(ceil(n / chunk), exit_every * ceil((c + 1) / exit_every)) with
+    c = last_death // chunk, the round in which the last pixel finished."""
+    n = (ranges[1:] - ranges[:-1]).long().reshape(last_death.shape)
+    total = (n + chunk - 1) // chunk
+    if exit_every == 0:
+        return total.to(torch.int32)
+    last = last_death.long()
+    stop = (last // chunk + exit_every) // exit_every * exit_every
+    return torch.where(last >= 0, torch.minimum(total, stop), total).to(torch.int32)
+
+
+def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths):
+    """`blend_plain`, and with deaths=True also `blend_probe_plain`'s last_death."""
     device = rows.device
     gx = width // tile
     n_tiles = gx * (height // tile)
@@ -67,6 +99,7 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
     T = torch.ones((n_tiles, pix), dtype=torch.float32, device=device)
     done = torch.zeros((n_tiles, pix), dtype=torch.bool, device=device)
     acc = torch.zeros((n_tiles, CHANNELS + 1, pix), dtype=torch.float32, device=device)
+    death = torch.full((n_tiles, pix), -1, dtype=torch.int32, device=device) if deaths else None
     n_steps = int(active[0]) if n_tiles else 0
     k = n_tiles
     for i in range(n_steps):
@@ -87,6 +120,8 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
         acc[:k] += r[:, GEOM:GEOM + CHANNELS + 1, None] * w[:, None, :]
         T[:k] = torch.where(use, test_t, Tk)
         done[:k] |= dies
+        if deaths:
+            death[:k] = torch.where(dies, i, death[:k])
 
     # tile order -> image
     inv = torch.empty_like(tiles)
@@ -100,7 +135,10 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
     out = to_image(acc)
     T_img = to_image(T[:, None, :])[..., 0]
     color = out[..., :CHANNELS] + T_img[..., None] * bg
-    return color, out[..., CHANNELS:], T_img
+    if not deaths:
+        return color, out[..., CHANNELS:], T_img
+    last = torch.where((death >= 0).all(1), death.max(1).values, -1)
+    return color, out[..., CHANNELS:], T_img, last[inv].reshape(gy, gx).to(torch.int32)
 
 
 def blend_bwd_plain(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth,
@@ -252,9 +290,9 @@ def _check_inputs(rows, order, ranges, bg, height, width, tile, row_width=ROW,
         raise ValueError("blend inputs must be contiguous")
 
 
-def _launch(entry, args, height, width, tile, device):
-    """Allocate the blend's outputs, launch `entry`(*args, outputs, height,
-    width, tile, stream) and raise on a launch error."""
+def _launch(entry, args, height, width, tile, device, extra_out=(), params=()):
+    """Allocate the blend's outputs, launch `entry`(*args, outputs, *extra_out,
+    height, width, tile, *params, stream) and raise on a launch error."""
     color = torch.empty((height, width, CHANNELS), dtype=torch.float32, device=device)
     invdepth = torch.empty((height, width, 1), dtype=torch.float32, device=device)
     final_t = torch.empty((height, width), dtype=torch.float32, device=device)
@@ -262,7 +300,7 @@ def _launch(entry, args, height, width, tile, device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(build.library(), entry)(
             *args, color.data_ptr(), invdepth.data_ptr(), final_t.data_ptr(),
-            height, width, tile, stream)
+            *(t.data_ptr() for t in extra_out), height, width, tile, *params, stream)
     build.check(err, entry)
     return color, invdepth, final_t
 
@@ -325,6 +363,29 @@ def forward_stream(stream, ranges, bg, height, width, tile):
                   height, width, tile, stream.device)
     stream_launches += 1
     return out
+
+
+def blend_probe(rows, order, ranges, bg, height, width, tile, chunk, exit_every):
+    """K1p on CUDA tensors, `blend_probe_plain` + `chunks_run` on CPU tensors:
+    K1's (color, invdepth, final_t) and chunks_run (gy, gx) int32, the rounds
+    of `chunk` instances each tile ran when it tests for every pixel being
+    done every `exit_every` rounds (0: never). Arguments as `blend`, with
+    1 <= chunk <= 256. Not differentiable (as the JAX package's)."""
+    global probe_launches
+    _check_inputs(rows, order, ranges, bg, height, width, tile)
+    if not 1 <= chunk <= MAX_PROBE_CHUNK or exit_every < 0:
+        raise ValueError(f"chunk must be in [1, {MAX_PROBE_CHUNK}] and exit_every >= 0, got "
+                         f"chunk={chunk}, exit_every={exit_every}")
+    rows = rows.detach()
+    if rows.device.type == "cpu":
+        *out, last = blend_probe_plain(rows, order, ranges, bg, height, width, tile)
+        return (*out, chunks_run(last, ranges, chunk, exit_every))
+    counts = torch.empty((height // tile, width // tile), dtype=torch.int32, device=rows.device)
+    out = _launch("guava_blend_probe",
+                  (rows.data_ptr(), order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
+                  height, width, tile, rows.device, (counts,), (chunk, exit_every))
+    probe_launches += 1
+    return (*out, counts)
 
 
 def blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth, tile):

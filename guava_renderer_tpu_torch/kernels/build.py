@@ -19,9 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "meshraster.cu",
-           "blend_bf16.cu", "blend_resident.cu", "blend_stream.cu", "gather_rows.cu")
+           "blend_bf16.cu", "blend_resident.cu", "blend_stream.cu", "gather_rows.cu",
+           "blend_probe.cu", "dma_bench.cu", "stream_sum.cu", "copy_probe.cu")
 # included by the sources; part of the build's digest
-HEADERS = ("blend_common.cuh", "blend_fwd.cuh")
+HEADERS = ("blend_common.cuh", "blend_fwd.cuh", "async_copy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,6 +34,7 @@ SOURCE_FLAGS = {"meshraster.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: (argtypes); each returns the launch's cudaError_t
 SIGNATURES = {
     # rows, order, ranges, bg, color, invdepth, final_T, height, width, tile, stream
@@ -55,6 +57,17 @@ SIGNATURES = {
     "guava_blend_stream_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # rows, ids, out, n, stream
     "guava_gather_rows": (_P, _P, _P, _I, _P),
+    # rows, order, ranges, bg, color, invdepth, final_T, counts, height, width, tile, chunk,
+    # exit_every, stream
+    "guava_blend_probe": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # table, idx, row_bytes, source, pipelined, banks, n_chunks, n_ctas, vals, staged (or
+    # null), out (or null: the copies alone), stream
+    "guava_row_copy": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # table, partials, out, n_rows, n_ctas, stream
+    "guava_stream_sum": (_P, _P, _P, _I, _I, _P),
+    # src, idx (or null), n_seg, base, elem_bytes, seg_bytes, out_off, out_bytes, out, route,
+    # stream
+    "guava_copy_probe": (_P, _P, _I, _L, _I, _I, _I, _I, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

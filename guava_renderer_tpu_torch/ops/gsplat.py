@@ -18,7 +18,9 @@
 
 `rasterize` = `rasterize_prep` (stages 1-2) + `rasterize_blend` (stage 3)
 on the default and bf16 paths; the resident and streaming paths are
-`rasterize` alone, as in the JAX package.
+`rasterize` alone, as in the JAX package. `blend_probe` is stage 3 by K1p,
+the blend that also counts the rounds each tile ran (the early-exit probe,
+`tools/ee_probe.py`).
 
 `rasterize` is differentiable in means, colors, opacities, scales, quats and
 bg: binning runs on detached values (which tiles a Gaussian reaches carries
@@ -44,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.cameras import Camera
+from ..kernels import blend as kblend
 from ..kernels.blend import (
     ALPHA_MIN, CHANNELS, GEOM, ROW, blend, blend_bf16, blend_resident, blend_stream)
 from ..kernels.gather_rows import gather_rows
@@ -231,6 +234,19 @@ def rasterize_blend(prep: RasterPrep, bg: torch.Tensor, height: int, width: int,
     color, invdepth, _ = fn(prep.rows, prep.order, prep.ranges, bg, height, width,
                             settings.tile)
     return _layout(color, invdepth, channels_first)
+
+
+def blend_probe(prep: RasterPrep, bg: torch.Tensor, height: int, width: int, tile: int,
+                chunk: int, exit_every: int, channels_first: bool = True):
+    """Instrumented forward blend of a prepped frame (counterpart of the JAX
+    package's `blend_probe`): K1p stages `chunk` instances a round and tests
+    whether every pixel of the tile is done every `exit_every` rounds (0:
+    never). -> (color, invdepth) as `rasterize_blend` returns them, final T
+    (H, W) and chunks_run (gy, gx) int32, the rounds each tile ran. The image
+    is K1's at every (chunk, exit_every). Not differentiable."""
+    color, invdepth, final_t, counts = kblend.blend_probe(
+        prep.rows, prep.order, prep.ranges, bg, height, width, tile, chunk, exit_every)
+    return (*_layout(color, invdepth, channels_first), final_t, counts)
 
 
 def rasterize(

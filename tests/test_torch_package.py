@@ -44,6 +44,8 @@ def _entry_points():
     from guava_renderer_tpu_torch.cli.inference import FramePipeline
     from guava_renderer_tpu_torch.convert import (
         avatar_from_numpy, inferer_from_flax, lpips_from_flax)
+    from guava_renderer_tpu_torch.tools import (
+        dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
 
     return {
         "make_bench_scene": lambda: make_bench_scene(64, 64, 21, 7),
@@ -58,6 +60,10 @@ def _entry_points():
         "make_micro_pipeline": lambda: testing.make_micro_pipeline(batch_size=1),
         "make_tiny_pipeline": lambda: testing.make_tiny_pipeline(batch_size=1),
         "lpips_from_flax": lambda: lpips_from_flax({}),
+        "tools.ee_probe": lambda: ee_probe.main([]),
+        "tools.dma_bench": lambda: dma_bench.main([]),
+        "tools.sort_payload_bench": lambda: sort_payload_bench.main([]),
+        "tools.mosaic_probe": lambda: mosaic_probe.main([]),
     }
 
 
@@ -65,7 +71,8 @@ def _entry_points():
                                   "FramePipeline with an inferer", "EhmModel.build",
                                   "avatar_from_numpy", "inferer_from_flax", "make_train_scene",
                                   "make_micro_pipeline", "make_tiny_pipeline",
-                                  "lpips_from_flax"])
+                                  "lpips_from_flax", "tools.ee_probe", "tools.dma_bench",
+                                  "tools.sort_payload_bench", "tools.mosaic_probe"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""
