@@ -8,7 +8,11 @@ Phases (one line each, then a JSON line of the kernels, then a last line
   2. build the CUDA kernels from `guava_renderer_tpu_torch/csrc`;
   3. each of the five kernels against its plain PyTorch version at the
      shapes of the full-scale bench scene's frame 0, with times (CUDA
-     events, medians);
+     events, medians); K1's sub-tile walk against the whole-tile walk it
+     replaced (K1p at (256, 1)) bit for bit and in turns, at tile 32 and on
+     a tile-16 binning of the same frame, with the cull's kept rows, the
+     registers and shared memory ptxas gave K1 and K3 and their resident
+     CTAs an SM; K4 and zeros.index_add_ in turns;
   4. the frame path at full width: FramePipeline with StyleUNet-small 512
      renders 20 frames through render_frame and through render_frames,
      with launch counts, fps and a per-stage split;
@@ -188,6 +192,29 @@ def cuda_ms(fn, reps=10, warmup=2):
     behind a device spin so that the host's time to reach the launch is not
     counted (`tools.device_ms`)."""
     return device_ms(fn, DEV, reps, warmup)
+
+
+def ptxas_usage(mangled):
+    """The line ptxas printed for the kernel whose mangled name holds
+    `mangled` (registers, shared memory, spills), from this run's build."""
+    lines = build.build_log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and mangled in ln:
+            for nxt in lines[i + 1:i + 6]:
+                if "registers" in nxt:
+                    return nxt.split(":", 1)[-1].strip()
+    return "not in this run's build log"
+
+
+def in_turns(runs, cycles=2):
+    """Median device ms of each of two callables timed in turns (a, b, b, a)
+    `cycles` times (`cuda_ms`, 10 launches each), so that drift favours neither."""
+    (ka, fa), (kb, fb) = runs.items()
+    times = {ka: [], kb: []}
+    for _ in range(cycles):
+        for k, fn in ((ka, fa), (kb, fb), (kb, fb), (ka, fa)):
+            times[k].append(cuda_ms(fn))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def k1_pairs(rows, order, ranges, tile):
@@ -429,10 +456,10 @@ def timed_once(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def blend_bound(rows_bytes, n_order, visited, contrib):
+def blend_bound(rows_bytes, n_order, visited, contrib, tile=TILE):
     """K1's bound for a forward blend of the bench frame that reads
     `rows_bytes` of rows and n_order ids: (ms, what bounds it)."""
-    n_bytes = (rows_bytes + n_order * 4 + ((SIZE // TILE) ** 2 + 1) * 4 + 32 * 4
+    n_bytes = (rows_bytes + n_order * 4 + ((SIZE // tile) ** 2 + 1) * 4 + 32 * 4
                + SIZE * SIZE * 34 * 4)
     ops = visited * K1_OPS_VISITED + contrib * K1_OPS_CONTRIB
     by = "operations" if ops / FP32_FLOPS > n_bytes / HBM_BYTES_PER_S else "bytes"
@@ -959,10 +986,14 @@ def main():
         if not bool(((got4 - want4_cpu).abs() <= room4).all()):
             raise SystemExit("K4 disagrees with its plain version run on the CPU")
         k4_equal_cpu = torch.equal(got4, want4_cpu)
-        k4_ms = cuda_ms(lambda: k2.face_gather_bwd(drows, ids, seg, n_faces))
         k4_plain_ms = cuda_ms(lambda: k2.face_gather_bwd_plain(drows, ids, n_faces))
-        k4_lib_ms = cuda_ms(lambda: torch.zeros((n_faces, 16), device=DEV).index_add_(
-            0, ids.long(), drows.T))
+        ids64 = ids.long()
+        k4_turns = in_turns({
+            "K4": lambda: k2.face_gather_bwd(drows, ids, seg, n_faces),
+            "index_add_": lambda: torch.zeros((n_faces, 16), device=DEV).index_add_(0, ids64,
+                                                                                    drows.T)},
+            cycles=3)
+        k4_ms, k4_lib_ms = k4_turns["K4"], k4_turns["index_add_"]
         k4_bytes = 16 * n_tex * 4 + n_tex * 4 + n_faces * 16 * 4
         k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
         seg_len = seg[1:] - seg[:-1]
@@ -970,9 +1001,10 @@ def main():
                f"{int(seg_len.max())} texels (the dummy face's {int(seg_len[-1])}); max abs vs "
                f"plain on the card {err4:.3g} (held to {K4_TOL} of a segment's sum of |drows|: "
                f"index_add_ adds atomically in any order), bit-equal to plain on the CPU "
-               f"(sequential, ascending texels): {k4_equal_cpu}; kernel {k4_ms:.4f} ms, plain "
-               f"{k4_plain_ms:.4f} ms, zeros.index_add_ {k4_lib_ms:.4f} ms, bound "
-               f"{k4_bound:.4f} ms ({k4_bytes / 1e6:.2f} MB)")
+               f"(sequential, ascending texels): {k4_equal_cpu}; in turns (K4, index_add_, "
+               f"index_add_, K4, three times; medians) kernel {k4_ms:.4f} ms, zeros.index_add_ "
+               f"{k4_lib_ms:.4f} ms ({k4_ms / k4_lib_ms:.3f} x), plain {k4_plain_ms:.4f} ms, "
+               f"bound {k4_bound:.4f} ms ({k4_bytes / 1e6:.2f} MB)")
 
         gs = deform_avatar(avatar, sc.ehm, sc.faces, sc.base_body, sc.base_flame,
                            plan=dplan, compact_faces=cfaces)
@@ -1001,6 +1033,52 @@ def main():
                f"(tol {K1_TOL}); kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms "
                f"(median of {plain_reps}), bound {k1_bound:.4f} ms by {k1_bound_by} "
                f"({k1_ops / 1e9:.2f} GFLOP, {k1_bytes / 1e6:.1f} MB)")
+
+        # the sub-tile walk against the whole-tile walk it replaced (K1p at (256, 1) runs that
+        # walk), in turns, at tile 32 and on a tile-16 binning of the same frame; the cull's
+        # counts from its plain version, per sub-tile and per warp (the kernels')
+        geo = k1.subtile_geometry(SIZE, SIZE, TILE)
+        occ = k1.occupancy(TILE)
+        say(3, f"K1/K3 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} threads "
+               f"({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic shared memory a "
+               f"CTA: K1 {occ['K1']['smem_bytes']} B, K3 {occ['K3']['smem_bytes']} B; resident "
+               f"CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): K1 "
+               f"{occ['K1']['ctas_per_sm']}, K3 {occ['K3']['ctas_per_sm']}; ptxas: K1 "
+               f"{ptxas_usage('16blend_fwd_kernel')}; K3 {ptxas_usage('16blend_bwd_kernel')}")
+        walks = {}
+        for tile_w in (TILE, 16):
+            if tile_w == TILE:
+                r_w, o_w, v_w, c_w = ranges, order, visited, contrib
+            else:
+                r_w, o_w = bin_gaussians(proj, SIZE, SIZE, tile_w)
+                v_w, c_w = k1_pairs(rows, o_w, r_w, tile_w)
+            new_img = k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)
+            *old_img, _ = k1.blend_probe(rows, o_w, r_w, bg, SIZE, SIZE, tile_w, 256, 1)
+            if not all(torch.equal(a, b) for a, b in zip(new_img, old_img)):
+                raise SystemExit(f"tile {tile_w}: the sub-tile K1 differs from the whole-tile "
+                                 f"walk (K1p at (256, 1))")
+            keep = k1.cull_keep_plain(rows, o_w, r_w, SIZE, SIZE, tile_w, level="subtile")
+            keep_w = k1.cull_keep_plain(rows, o_w, r_w, SIZE, SIZE, tile_w)
+            w_ms = in_turns({"old": lambda: k1.blend_probe(rows, o_w, r_w, bg, SIZE, SIZE, tile_w,
+                                                           256, 1),
+                             "new": lambda: k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)})
+            w_bound, w_by, _ = blend_bound(P * k1.ROW * 4, o_w.numel(), v_w, c_w, tile_w)
+            walks[tile_w] = {"old_ms": w_ms["old"], "new_ms": w_ms["new"],
+                             "new_over_old": w_ms["new"] / w_ms["old"], "bound_ms": w_bound,
+                             "instances": o_w.numel(), "staged": keep.numel(),
+                             "kept": int(keep.sum()), "warp_pairs": keep_w.numel(),
+                             "warp_pairs_kept": int(keep_w.sum())}
+            say(3, f"K1 at tile {tile_w} ({o_w.numel()} instances, visited pairs {v_w}, "
+                   f"contributing {c_w}): bit-equal to the whole-tile walk; in turns (old, new, "
+                   f"new, old, twice; medians) whole-tile walk {w_ms['old']:.4f} ms, sub-tile K1 "
+                   f"{w_ms['new']:.4f} ms ({w_ms['new'] / w_ms['old']:.3f} x), bound "
+                   f"{w_bound:.4f} ms by {w_by}; cull over the full ranges (before any "
+                   f"sub-tile stops): of {keep.numel()} rows the sub-tiles stage, "
+                   f"{int(keep.sum())} reach their sub-tile "
+                   f"({int(keep.sum()) / max(keep.numel(), 1):.4f}); of {keep_w.numel()} (row, "
+                   f"warp) pairs, the warps walk {int(keep_w.sum())} "
+                   f"({int(keep_w.sum()) / max(keep_w.numel(), 1):.4f})")
+            del new_img, old_img, keep, keep_w
 
         # K3 (the blend's backward) on the same frame: seeded output gradients at
         # the scale a mean over the image's pixels gives them
@@ -1493,7 +1571,8 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1018", "launches": launches["K1"],
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "bound_by": k1_bound_by, "library_ms": None, **occ["K1"],
+         "against_whole_tile_walk": walks},
         {"name": "K2 face gather", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],
@@ -1503,7 +1582,7 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/blend_bwd.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1457", "launches": train_launches["K3"],
          "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_bound_by, "library_ms": None},
+         "bound_by": k3_bound_by, "library_ms": None, **occ["K3"]},
         {"name": "K4 face gather backward", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather_bwd.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:143",

@@ -12,7 +12,7 @@
 // bench frame those bytes are ~60 MB against ~2.5 GFLOP of blending, so the
 // halving is not expected to show in the time.
 //
-// Design: K1's walk (blend_fwd.cuh) with another staging. A thread of the
+// Design: the whole-tile walk (blend_fwd.cuh) with another staging. A thread of the
 // CTA reads 8 bytes of a packed row (for the geometry 8 bytes of hi and 8
 // of lo) and writes one float4 of the f32 row into shared memory:
 // geometry = __fadd_rn(hi, lo), colors widened exactly (a bf16 is the top

@@ -1,11 +1,14 @@
-// The forward tile blend shared by K1 (blend.cu) and its variants K6
-// (blend_bf16.cu), K7 (blend_resident.cu) and K8 (blend_stream.cu). They
-// differ only in where a round's rows come from; `Stage` fills the shared
-// buffer with the f32 rows of instances base .. base + n - 1 of the tile's
-// run, and everything after it (the walk, the decisions, the sums, the
-// output) is this one function. So two variants given the same f32 rows
-// give the same image bit for bit, and K3 (blend_bwd.cu) replays any of
-// them from those rows.
+// The whole-tile walk of the forward blend variants K6 (blend_bf16.cu), K7
+// (blend_resident.cu), K8 (blend_stream.cu) and the probe K1p
+// (blend_probe.cu): the walk K1 ran before it moved to sub-tile CTAs
+// (blend.cu, blend_subtile.cuh), which takes the same decisions on the same
+// rows and gives the same image bit for bit. The variants differ only in
+// where a round's rows come from; `Stage` fills the shared buffer with the
+// f32 rows of instances base .. base + n - 1 of the tile's run, and
+// everything after it (the walk, the decisions, the sums, the output) is
+// this one function. So two variants given the same f32 rows give the same
+// image bit for bit, and K3 (blend_bwd.cu) replays any of them from those
+// rows.
 //
 // One CTA per tile, one thread per pixel, as in the reference's renderCUDA:
 // each thread walks its tile's instances front to back, keeping T and its
@@ -17,8 +20,8 @@
 //
 // `Walk` sets the rounds: how many rows each stages, before which rounds the
 // tile tests whether every pixel is done, and what it does with the count
-// of rounds it ran. K1 and its variants take `FullRounds` (kBatch rows, the
-// test before every round, no count); the probe K1p (blend_probe.cu) stages
+// of rounds it ran. The variants take `FullRounds` (kBatch rows, the test
+// before every round, no count); the probe K1p (blend_probe.cu) stages
 // fewer rows a round, tests more rarely and writes the count. A pixel's
 // decisions do not depend on the rounds, so every Walk gives the same image.
 
@@ -32,7 +35,7 @@
 
 namespace guava_blend {
 
-// The rounds of K1 and its variants: kBatch rows each, the exit test before each.
+// The rounds of K6, K7 and K8: kBatch rows each, the exit test before each.
 struct FullRounds {
   __device__ int rows_a_round() const { return kBatch; }
   __device__ bool exit_test_before(int) const { return true; }

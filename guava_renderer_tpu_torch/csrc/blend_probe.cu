@@ -12,15 +12,16 @@
 // store a tile. A smaller round costs a barrier and a staging pass more
 // often, which is what the probe measures.
 //
-// Design: K1's own walk (blend_fwd.cuh:blend_tile) and staging, with a
-// `Walk` that stages `chunk` rows a round (chunk <= kBatch), tests whether
-// every pixel is done only before rounds r with r % exit_every == 0, and
-// writes the rounds run from thread 0. So the image, the inverse depth and
-// the final T are K1's bit for bit at every (chunk, exit_every), and the
-// count is the JAX package's: a tile whose last pixel finishes in round
-// c stops after exit_every * ceil((c + 1) / exit_every) rounds, capped at
-// ceil(n / chunk). K1 (blend.cu) is a separate instantiation of the walk
-// and is unchanged by this one.
+// Design: the whole-tile walk (blend_fwd.cuh:blend_tile, K1's before K1
+// moved to sub-tile CTAs) and its staging, with a `Walk` that stages
+// `chunk` rows a round (chunk <= kBatch), tests whether every pixel is done
+// only before rounds r with r % exit_every == 0, and writes the rounds run
+// from thread 0. So the image, the inverse depth and the final T are K1's
+// bit for bit at every (chunk, exit_every), and the count is the JAX
+// package's: a tile whose last pixel finishes in round c stops after
+// exit_every * ceil((c + 1) / exit_every) rounds, capped at ceil(n / chunk).
+// At (256, 1) it is the whole-tile walk itself, which chip_smoke.py times
+// against K1 in turns.
 
 #include <cuda_runtime.h>
 

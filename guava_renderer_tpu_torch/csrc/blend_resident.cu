@@ -12,7 +12,7 @@
 // tables are read through L2 and the walk is K1's, so the time should be
 // K1's.
 //
-// Design: K1's walk (blend_fwd.cuh) with a staging that picks the row's
+// Design: the whole-tile walk (blend_fwd.cuh) with a staging that picks the row's
 // source by id: id >= P reads ltable[id - P] (clipped to [0, L - 1], as the
 // TPU kernel clips it), any other id rows[id]. The resident table is read
 // through global memory; holding it in shared memory is later work (at

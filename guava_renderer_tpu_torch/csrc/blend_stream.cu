@@ -13,7 +13,7 @@
 // gathered ~3 times over) into contiguous reads of N rows (~94 MB), and
 // the blend's time is its arithmetic either way.
 //
-// Design: K1's walk (blend_fwd.cuh) with a staging of contiguous,
+// Design: the whole-tile walk (blend_fwd.cuh) with a staging of contiguous,
 // coalesced 16-byte loads: stage[i] = stream4[base * 11 + i]. Copying
 // with cp.async or TMA bulk copies, and overlapping a round's copy with
 // the walk of the last, is later work.

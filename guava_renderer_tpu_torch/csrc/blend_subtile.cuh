@@ -1,0 +1,269 @@
+// The sub-tile walk shared by the forward tile blend K1 (blend.cu) and its
+// backward K3 (blend_bwd.cu): how a bin tile is cut into sub-tiles, one CTA
+// each; how a round's rows are staged, two buffers deep, by the bulk copy
+// engine; and the exact row cull that drops the rows no pixel of a warp
+// can take.
+//
+// Sub-tiles. A bin tile (its instances order[ranges[t] : ranges[t + 1]])
+// is walked by (tile / sub)^2 CTAs of sub^2 pixels, one thread a pixel,
+// where sub = 16 for tiles that are multiples of 16, 8 for other multiples
+// of 8, else the tile itself. The CTAs of one bin tile have neighbouring
+// blockIdx values, so they run at about the same time and L2 serves the
+// rows they all read. Inside a sub-tile of side 8 or 16 each warp covers an
+// 8 x 4 block of pixels (warps row-major over the sub-tile): neighbouring
+// pixels tend to take the same rows, so fewer lanes idle in the 33-FMA
+// accumulation than in a 32 x 1 strip. Other sides lay the pixels out
+// row-major, and the threads past sub^2 (the CTA is a whole number of
+// warps) hold no pixel.
+//
+// Staging. A round is up to a Stage's rows_a_round rows (K1 128, K3 64).
+// Each row is one 176-byte bulk copy, issued by one thread, that completes
+// on its buffer's mbarrier; the barrier expects the round's bytes. With a
+// Stage of depth buffers, round r + depth - 1 is issued as round r starts,
+// so the copies land while earlier rounds are culled and walked (RowPipe).
+//
+// The cull. Once a round has landed, each warp tests the round's rows (one
+// lane a row) against the box of its own pixel centres (8 x 4 in a
+// sub-tile of side 8 or 16) by the JAX package's box test
+// (guava_renderer_tpu/ops/gsplat.py:234 _slot_qmin, :179 _cull_qcut, on a
+// rectangle): the exact minimum of the conic quadratic
+// q(d) = a dx^2 + 2 b dx dy + c dy^2 over the box, against the q above
+// which alpha * exp(-q / 2) falls below 1/255, 2 ln(max(255 alpha, 1)) +
+// 1e-3. A row whose minimum lies above that cut, by more than kCullSlack of
+// the largest quadratic term over the box, is dropped. The survivors' bits
+// are the warp's mask, in registers: the walk iterates over them, and no
+// barrier stands between the copies landing and the walk. Why the image
+// cannot change: a pixel takes a row only if power <= 0 and
+// alpha * exp(power) >= 1/255 (blend_common.cuh), and otherwise leaves T,
+// its sums and its `done` as they were. For a dropped row every pixel
+// centre p of the box has q(p) >= min q over the box, and float32 rounding
+// moves the kernel's power = -q(p) / 2 and the cull's minimum by at most
+// ~12 units in the last place of that largest term (d0, d1, three products
+// and two sums each; the box edges and the clamped point rounded once
+// more), which the slack (64 units) covers; the 1e-3 covers expf's error
+// and the rounding of the cut. So the kernel's own float32 test rejects the
+// row at every pixel of the box: each pixel sees the rows it would have
+// taken, in the same order, and takes the same decisions and sums bit for
+// bit. Rows with a non-finite field and conics that are not positive
+// definite are never dropped.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "async_copy.cuh"
+#include "blend_common.cuh"
+
+namespace guava_blend {
+
+constexpr uint32_t kRowBytes = kRow * 4;      // 176: one bulk copy a row
+constexpr int kMaxSubThreads = 256;
+constexpr float kCullSlack = 1.0f / 262144.0f;   // 2^-18, 64 units in the last place
+
+// The side of the sub-tiles a bin tile of side `tile` is cut into.
+__host__ __device__ inline int subtile_side(int tile) {
+  return tile % 16 == 0 ? 16 : (tile % 8 == 0 ? 8 : tile);
+}
+
+// Threads of a sub-tile CTA: sub^2 rounded up to whole warps.
+__host__ __device__ inline int subtile_threads(int tile) {
+  const int s = subtile_side(tile);
+  return (s * s + 31) / 32 * 32;
+}
+
+__host__ __device__ inline int subtiles_per_tile(int tile) {
+  const int n = tile / subtile_side(tile);
+  return n * n;
+}
+
+// CTAs of a blend over an image tiled by `tile`: one a sub-tile.
+inline int subtile_ctas(int height, int width, int tile) {
+  return (width / tile) * (height / tile) * subtiles_per_tile(tile);
+}
+
+// This CTA's sub-tile and this thread's pixel.
+struct SubTile {
+  int tile_id;   // the bin tile, whose rows are order[ranges[tile_id] : ranges[tile_id + 1]]
+  int x0, y0;    // the sub-tile's first pixel
+  int side;
+  int px, py;    // this thread's pixel
+  bool active;   // false for the threads past side^2
+};
+
+__device__ __forceinline__ SubTile subtile_of(int tile, int grid_x) {
+  SubTile st;
+  st.side = subtile_side(tile);
+  const int per_side = tile / st.side;
+  const int spt = per_side * per_side;
+  st.tile_id = blockIdx.x / spt;
+  const int s = blockIdx.x - st.tile_id * spt;
+  st.x0 = (st.tile_id % grid_x) * tile + (s % per_side) * st.side;
+  st.y0 = (st.tile_id / grid_x) * tile + (s / per_side) * st.side;
+  const int t = threadIdx.x;
+  int lx, ly;
+  if (st.side % 8 == 0) {   // warp w an 8 x 4 block, the warps row-major over the sub-tile
+    const int w = t >> 5;
+    const int lane = t & 31;
+    const int blocks_x = st.side / 8;
+    lx = (w % blocks_x) * 8 + (lane & 7);
+    ly = (w / blocks_x) * 4 + (lane >> 3);
+  } else {
+    lx = t % st.side;
+    ly = t / st.side;
+  }
+  st.active = t < st.side * st.side;
+  st.px = st.x0 + lx;
+  st.py = st.y0 + ly;
+  return st;
+}
+
+// Whether the staged row s may contribute to a pixel whose centre lies in
+// the box [x0, x0 + span_x] x [y0, y0 + span_y]; false only where no pixel
+// centre of the box can pass the blend's tests (see the head of this file).
+// The expressions are those of _slot_qmin and _cull_qcut.
+__device__ __forceinline__ bool row_may_reach(const float* s, float x0, float y0, float span_x,
+                                              float span_y) {
+  const float mx = s[0], my = s[1], ca = s[2], cb = s[3], cc = s[4], a = s[5];
+  if (!(isfinite(mx) && isfinite(my) && isfinite(ca) && isfinite(cb) && isfinite(cc) &&
+        isfinite(a))) {
+    return true;
+  }
+  if (!(ca > 0.0f && cc > 0.0f && ca * cc - cb * cb > 0.0f)) return true;   // not positive definite
+  const float bx0 = x0 - mx, bx1 = bx0 + span_x;
+  const float by0 = y0 - my, by1 = by0 + span_y;
+  if (bx0 <= 0.0f && bx1 >= 0.0f && by0 <= 0.0f && by1 >= 0.0f) return true;   // min q = 0
+  // each edge: one offset fixed, the quadratic's minimum over the other clamped to the edge
+  auto edge_x = [&](float e) {
+    const float dy = fminf(fmaxf(-cb * e / fmaxf(cc, 1e-20f), by0), by1);
+    return (ca * e + 2.0f * cb * dy) * e + cc * dy * dy;
+  };
+  auto edge_y = [&](float e) {
+    const float dx = fminf(fmaxf(-cb * e / fmaxf(ca, 1e-20f), bx0), bx1);
+    return (cc * e + 2.0f * cb * dx) * e + ca * dx * dx;
+  };
+  const float qmin = fminf(fminf(edge_x(bx0), edge_x(bx1)), fminf(edge_y(by0), edge_y(by1)));
+  const float qcut = 2.0f * logf(fmaxf(255.0f * a, 1.0f)) + 1e-3f;
+  const float ex = fmaxf(fabsf(bx0), fabsf(bx1));
+  const float ey = fmaxf(fabsf(by0), fabsf(by1));
+  const float largest = ca * ex * ex + 2.0f * fabsf(cb) * ex * ey + cc * ey * ey;
+  return !(qmin > qcut + kCullSlack * largest);   // an overflow to inf keeps the row
+}
+
+// kDepth buffers of up to kRows staged rows (176 B each), their barriers
+// and Gaussian ids: kDepth - 1 rounds in flight.
+template <int kRows, int kDepth>
+struct RowStage {
+  static constexpr int rows_a_round = kRows;
+  static constexpr int depth = kDepth;
+  static constexpr int words = kRows / 32;   // words of a round's keep mask
+  float4 rows[kDepth][kRows * kRow4];
+  uint64_t bar[kDepth];
+  int gids[kDepth][kRows];
+};
+
+// The box of a warp's pixel centres: (x0, y0) and the spans.
+struct WarpBox {
+  float x0, y0, span_x, span_y;
+};
+
+// This warp's box, the bounds of its lanes' pixels (lanes without a pixel
+// take no part). Called by every lane of the warp.
+__device__ __forceinline__ WarpBox warp_box(const SubTile& sub) {
+  int x_lo = sub.active ? sub.px : 1 << 30, y_lo = sub.active ? sub.py : 1 << 30;
+  int x_hi = sub.active ? sub.px : -1, y_hi = sub.active ? sub.py : -1;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x_lo = min(x_lo, __shfl_xor_sync(0xffffffffu, x_lo, off));
+    y_lo = min(y_lo, __shfl_xor_sync(0xffffffffu, y_lo, off));
+    x_hi = max(x_hi, __shfl_xor_sync(0xffffffffu, x_hi, off));
+    y_hi = max(y_hi, __shfl_xor_sync(0xffffffffu, y_hi, off));
+  }
+  return WarpBox{static_cast<float>(x_lo), static_cast<float>(y_lo),
+                 static_cast<float>(x_hi - x_lo), static_cast<float>(y_hi - y_lo)};
+}
+
+// Call from thread 0, then __syncthreads, before the first round is issued.
+template <class Stage>
+__device__ __forceinline__ void stage_init(Stage& st) {
+  for (int b = 0; b < Stage::depth; ++b) guava_copy::barrier_init(&st.bar[b]);
+  guava_copy::fence_barrier_init();
+}
+
+// The rounds of a CTA's run order[start : end] through a Stage. Round r is
+// its rows r R .. r R + R - 1 with R = min(rows a round, threads), so a
+// thread issues at most one row's copy a round, and it loads that row's
+// Gaussian id one issue ahead: the id's latency hides behind a round, and
+// the copy's behind the depth - 1 rounds in flight. Round r lives in buffer
+// r % depth, that buffer's (r / depth)-th use.
+template <class Stage>
+struct RowPipe {
+  static constexpr int kDepth = Stage::depth;
+  Stage& st;
+  const float4* __restrict__ rows;
+  const int* __restrict__ order;
+  int start, end, R, n_rounds;
+  int next;     // the next round to issue
+  int gid;      // the id of this thread's row in round `next`
+  bool gids;    // record the ids (the backward's flush reads them)
+
+  __device__ RowPipe(Stage& st_, const float4* rows_, const int* order_, int start_, int end_,
+                     bool gids_)
+      : st(st_), rows(rows_), order(order_), start(start_), end(end_), next(0), gid(0),
+        gids(gids_) {
+    R = min(Stage::rows_a_round, static_cast<int>(blockDim.x));
+    n_rounds = (end - start + R - 1) / R;
+    if (static_cast<int>(threadIdx.x) < rows_in(0)) gid = order[start + threadIdx.x];
+  }
+
+  __device__ int rows_in(int r) const { return max(0, min(R, end - start - r * R)); }
+
+  // Start round `next`'s copies; its buffer must be free (walked, and for K3
+  // flushed, by every thread). Called by every thread.
+  __device__ void issue_next() {
+    const int b = next % kDepth;
+    const int n = rows_in(next);
+    const int t = threadIdx.x;
+    if (t == 0) guava_copy::expect_bytes(&st.bar[b], n * kRowBytes);
+    if (t < n) {
+      if (gids) st.gids[b][t] = gid;
+      guava_copy::bulk_copy(&st.rows[b][t * kRow4], rows + static_cast<int64_t>(gid) * kRow4,
+                            kRowBytes, &st.bar[b]);
+    }
+    ++next;
+    if (t < rows_in(next)) gid = order[start + next * R + t];
+  }
+
+  // The first depth - 1 rounds, before the walk starts.
+  __device__ void prologue() {
+    while (next < min(kDepth - 1, n_rounds)) issue_next();
+  }
+
+  __device__ void wait(int r) {
+    guava_copy::wait_parity(&st.bar[r % kDepth], static_cast<uint32_t>((r / kDepth) & 1));
+  }
+
+  // Before the CTA leaves at round r: every issued copy must have landed.
+  __device__ void drain(int r) {
+    for (int q = r; q < next; ++q) wait(q);
+  }
+};
+
+// The cull of a round's n landed rows (`rows_b`, the round's buffer) for
+// this warp's box: bit i of keep[k] is row 32 k + i. Called by every lane
+// of the warp, after it has waited for the round.
+template <int kWords>
+__device__ __forceinline__ void cull_warp(const float4* rows_b, int n, const WarpBox& box,
+                                          uint32_t (&keep)[kWords]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const int j = k * 32 + lane;
+    const bool may = j < n && row_may_reach(reinterpret_cast<const float*>(rows_b + j * kRow4),
+                                            box.x0, box.y0, box.span_x, box.span_y);
+    keep[k] = __ballot_sync(0xffffffffu, may);
+  }
+}
+
+}  // namespace guava_blend

@@ -5,6 +5,13 @@ backward is K3; and K1p (`blend_probe`, `csrc/blend_probe.cu`), K1 with a
 count of the rounds each tile ran, for the early-exit probe
 (`tools/ee_probe.py`).
 
+K1 and K3 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8 at
+tile 8), one CTA each, and each warp drops the rows no pixel of its own
+8 x 4 block can take (`csrc/blend_subtile.cuh`); `subtile_geometry` and
+`cull_keep_plain` state that cut and that cull in PyTorch ops. K6, K7, K8
+and K1p walk whole tiles (`csrc/blend_fwd.cuh`). The images are the same
+bit for bit.
+
 `blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
 differentiable in `rows` and `bg`. For CUDA tensors their forwards launch
 `csrc/blend.cu`, `csrc/blend_bf16.cu`, `csrc/blend_resident.cu` and
@@ -19,6 +26,10 @@ depth-ascending within each tile; tile t owns order[ranges[t]:ranges[t+1]].
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +48,142 @@ bf16_launches = 0       # K6
 resident_launches = 0   # K7
 stream_launches = 0     # K8
 probe_launches = 0      # K1p
-MAX_PROBE_CHUNK = 256   # K1p stages at most K1's round of rows (csrc/blend_common.cuh:kBatch)
+MAX_PROBE_CHUNK = 256   # at most the whole-tile walk's round (csrc/blend_common.cuh:kBatch)
+# the cull's room for float32 rounding, a share of the largest quadratic term
+# over the box (csrc/blend_subtile.cuh:kCullSlack)
+CULL_SLACK = 2.0 ** -18
+
+
+class SubtileGeometry(NamedTuple):
+    """How K1 and K3 cut an image tiled by `tile` into CTAs
+    (csrc/blend_subtile.cuh:subtile_of)."""
+
+    side: int              # sub-tile side: 16, 8, or the tile itself
+    per_tile: int          # sub-tiles a bin tile
+    n_ctas: int            # one a sub-tile; bin tile t's are CTAs t * per_tile + s
+    threads: int           # threads a CTA: side^2 in whole warps
+    px: torch.Tensor       # (n_ctas, threads) int64 pixel x of each thread, -1 for none
+    py: torch.Tensor       # (n_ctas, threads) int64 pixel y
+
+
+def subtile_side(tile: int) -> int:
+    """Side of the sub-tiles of a bin tile: 16 for multiples of 16, 8 for
+    other multiples of 8, else the tile itself."""
+    return 16 if tile % 16 == 0 else 8 if tile % 8 == 0 else tile
+
+
+def subtile_geometry(height: int, width: int, tile: int) -> SubtileGeometry:
+    """The CTAs of K1 and K3 and each thread's pixel. Sub-tiles of side 8
+    and 16 give each warp an 8 x 4 block of pixels, the warps row-major
+    over the sub-tile; other sides lay the pixels out row-major."""
+    side = subtile_side(tile)
+    per = tile // side
+    gx = width // tile
+    n_tiles = gx * (height // tile)
+    threads = (side * side + 31) // 32 * 32
+    tiles = torch.arange(n_tiles)[:, None]
+    s = torch.arange(per * per)
+    x0 = (tiles % gx) * tile + (s % per) * side      # (n_tiles, per_tile) first pixels
+    y0 = (tiles // gx) * tile + (s // per) * side
+    t = torch.arange(threads)
+    if side % 8 == 0:
+        warp, lane = t // 32, t % 32
+        lx = (warp % (side // 8)) * 8 + lane % 8
+        ly = (warp // (side // 8)) * 4 + lane // 8
+    else:
+        lx, ly = t % side, t // side
+    active = t < side * side
+    px = torch.where(active, x0.reshape(-1, 1) + lx, -1)
+    py = torch.where(active, y0.reshape(-1, 1) + ly, -1)
+    return SubtileGeometry(side, per * per, n_tiles * per * per, threads, px, py)
+
+
+def cull_qcut_plain(conic, alpha):
+    """The q above which alpha * exp(-q / 2) is below the blend's 1/255:
+    2 ln(max(255 alpha, 1)) + 1e-3, +inf where the conic (..., 3) = (a, b,
+    c) is not positive definite (the JAX package's `_cull_qcut`)."""
+    ca, cb, cc = conic.unbind(-1)
+    pd = (ca > 0.0) & (cc > 0.0) & (ca * cc - cb * cb > 0.0)
+    qcut = 2.0 * torch.log(torch.clamp(255.0 * alpha, min=1.0)) + 1e-3
+    return torch.where(pd, qcut, math.inf)
+
+
+def box_qmin_plain(bx0, by0, span_x, span_y, conic):
+    """Minimum of q(d) = a dx^2 + 2 b dx dy + c dy^2 over the box
+    [bx0, bx0 + span_x] x [by0, by0 + span_y] of offsets d = pixel - mean,
+    for a positive definite conic (..., 3): 0 if the box holds d = 0, else
+    the least of the four edges' minima (the JAX package's `_slot_qmin`, on
+    a rectangle)."""
+    ca, cb, cc = conic.unbind(-1)
+    bx1 = bx0 + span_x
+    by1 = by0 + span_y
+
+    def edge_x(e):
+        dy = torch.minimum(torch.maximum(-cb * e / torch.clamp(cc, min=1e-20), by0), by1)
+        return (ca * e + 2.0 * cb * dy) * e + cc * dy * dy
+
+    def edge_y(e):
+        dx = torch.minimum(torch.maximum(-cb * e / torch.clamp(ca, min=1e-20), bx0), bx1)
+        return (cc * e + 2.0 * cb * dx) * e + ca * dx * dx
+
+    qmin = torch.minimum(torch.minimum(edge_x(bx0), edge_x(bx1)),
+                         torch.minimum(edge_y(by0), edge_y(by1)))
+    inside = (bx0 <= 0.0) & (bx1 >= 0.0) & (by0 <= 0.0) & (by1 >= 0.0)
+    return torch.where(inside, 0.0, qmin)
+
+
+def row_may_reach_plain(geom, x0, y0, span_x, span_y):
+    """csrc/blend_subtile.cuh:row_may_reach in PyTorch ops: geom (..., 6) =
+    (x, y, conic a, b, c, alpha) rows against boxes of pixel centres
+    [x0, x0 + span_x] x [y0, y0 + span_y] -> bool, False only where the
+    box's q-minimum lies above the cut by more than CULL_SLACK of the
+    largest quadratic term over the box. Rows with a non-finite field are
+    kept."""
+    mx, my = geom[..., 0], geom[..., 1]
+    conic, alpha = geom[..., 2:5], geom[..., 5]
+    bx0 = x0 - mx
+    by0 = y0 - my
+    qmin = box_qmin_plain(bx0, by0, span_x, span_y, conic)
+    ex = torch.maximum(bx0.abs(), (bx0 + span_x).abs())
+    ey = torch.maximum(by0.abs(), (by0 + span_y).abs())
+    ca, cb, cc = conic.unbind(-1)
+    largest = ca * ex * ex + 2.0 * cb.abs() * ex * ey + cc * ey * ey
+    cull = qmin > cull_qcut_plain(conic, alpha) + CULL_SLACK * largest
+    return ~(cull & torch.isfinite(geom).all(-1))
+
+
+def cull_boxes(tile, level="warp"):
+    """The boxes of pixel centres in a bin tile that K1 and K3 cull against:
+    level "warp", the bounds of each warp's pixels (what the kernels test),
+    or "subtile", each sub-tile. -> x0, y0, span_x, span_y (B,) float32 in
+    the tile's own coordinates, and box_of (tile * tile,) int64, the box of
+    each pixel of the tile (row-major)."""
+    geo = subtile_geometry(tile, tile, tile)
+    group = 32 if level == "warp" else geo.threads
+    px = geo.px.reshape(-1, group)
+    py = geo.py.reshape(-1, group)
+    held = px >= 0
+    x_lo = torch.where(held, px, tile).amin(1)
+    y_lo = torch.where(held, py, tile).amin(1)
+    x_hi, y_hi = px.amax(1), py.amax(1)
+    box_of = torch.empty(tile * tile, dtype=torch.int64)
+    box_of[(py * tile + px)[held]] = torch.arange(px.shape[0])[:, None].expand_as(px)[held]
+    return (x_lo.float(), y_lo.float(), (x_hi - x_lo).float(), (y_hi - y_lo).float(), box_of)
+
+
+def cull_keep_plain(rows, order, ranges, height, width, tile, level="warp"):
+    """(N, B) bool: whether instance i (Gaussian order[i], in bin tile t) is
+    kept for box k of `cull_boxes(tile, level)` in t, i.e. may reach a pixel
+    of it (`row_may_reach_plain`). Arguments as `blend`; level "warp" is
+    the kernels' own cull."""
+    gx = width // tile
+    x0, y0, span_x, span_y, _ = (v.to(rows.device) for v in cull_boxes(tile, level))
+    counts = (ranges[1:] - ranges[:-1]).long()
+    tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=rows.device), counts)
+    ox = ((tile_of % gx) * tile).float()[:, None]
+    oy = ((tile_of // gx) * tile).float()[:, None]
+    geom = rows[order[:tile_of.numel()].long(), :6]
+    return row_may_reach_plain(geom[:, None, :], ox + x0, oy + y0, span_x, span_y)
 
 
 def _tile_order(ranges, width, tile):
@@ -65,6 +211,16 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
     return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=False)
 
 
+def blend_culled_plain(rows, order, ranges, bg, height, width, tile):
+    """K1's walk as the kernel runs it, in PyTorch ops: `blend_plain` with
+    every pixel skipping the rows its warp's cull drops (`cull_keep_plain`).
+    Equal to `blend_plain` bit for bit wherever the cull drops only rows
+    the pixels would have skipped."""
+    keep = cull_keep_plain(rows, order, ranges, height, width, tile)
+    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=False,
+                       keep=(keep, cull_boxes(tile)[4]))
+
+
 def blend_probe_plain(rows, order, ranges, bg, height, width, tile):
     """`blend_plain`'s (color, invdepth, final_t) and last_death (gy, gx)
     int32: per tile, the instance (0 = the tile's first) at which its last
@@ -88,13 +244,17 @@ def chunks_run(last_death, ranges, chunk, exit_every):
     return torch.where(last >= 0, torch.minimum(total, stop), total).to(torch.int32)
 
 
-def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths):
-    """`blend_plain`, and with deaths=True also `blend_probe_plain`'s last_death."""
+def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths, keep=None):
+    """`blend_plain`, and with deaths=True also `blend_probe_plain`'s
+    last_death; with keep = (mask (N, B), box_of (tile * tile,)), a pixel
+    skips the instances its box does not keep."""
     device = rows.device
     gx = width // tile
     n_tiles = gx * (height // tile)
     pix = tile * tile
     tiles, active, starts, px, py = _tile_order(ranges, width, tile)
+    if keep is not None:
+        keep, box_of = keep[0], keep[1].to(device)
 
     T = torch.ones((n_tiles, pix), dtype=torch.float32, device=device)
     done = torch.zeros((n_tiles, pix), dtype=torch.bool, device=device)
@@ -111,6 +271,8 @@ def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths):
         power = -0.5 * (r[:, 2:3] * d0 * d0 + r[:, 4:5] * d1 * d1) - r[:, 3:4] * d0 * d1
         ag = r[:, 5:6] * torch.exp(power)
         contrib = (power <= 0.0) & (ag >= ALPHA_MIN) & ~done[:k]
+        if keep is not None:
+            contrib &= keep[starts[:k] + i][:, box_of]
         alpha = torch.clamp(ag, max=ALPHA_MAX)
         Tk = T[:k]
         test_t = Tk * (1.0 - alpha)
@@ -288,6 +450,8 @@ def _check_inputs(rows, order, ranges, bg, height, width, tile, row_width=ROW,
         raise ValueError(f"unsupported device {rows.device}")
     if rows.device.type == "cuda" and not all(t.is_contiguous() for t in inputs):
         raise ValueError("blend inputs must be contiguous")
+    if rows.device.type == "cuda" and rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary (the kernels copy 16-byte pieces)")
 
 
 def _launch(entry, args, height, width, tile, device, extra_out=(), params=()):
@@ -386,6 +550,21 @@ def blend_probe(rows, order, ranges, bg, height, width, tile, chunk, exit_every)
                   height, width, tile, rows.device, (counts,), (chunk, exit_every))
     probe_launches += 1
     return (*out, counts)
+
+
+def occupancy(tile):
+    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}}: CTAs of the
+    built K1 and K3 resident on one SM at once at this tile
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the dynamic shared
+    memory each CTA takes."""
+    lib = build.library()
+    out = {}
+    for key, entry in (("K1", "guava_blend_fwd_occupancy"), ("K3", "guava_blend_bwd_occupancy")):
+        n, smem = ctypes.c_int(0), ctypes.c_int(0)
+        build.check(getattr(lib, entry)(tile, ctypes.addressof(n), ctypes.addressof(smem)),
+                    entry)
+        out[key] = {"ctas_per_sm": n.value, "smem_bytes": smem.value}
+    return out
 
 
 def blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth, tile):
