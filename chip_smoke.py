@@ -11,8 +11,11 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      events, medians); K1's sub-tile walk against the whole-tile walk it
      replaced (K1p at (256, 1)) bit for bit and in turns, at tile 32 and on
      a tile-16 binning of the same frame, with the cull's kept rows, the
-     registers and shared memory ptxas gave K1 and K3 and their resident
-     CTAs an SM; K4 and zeros.index_add_ in turns;
+     registers and shared memory ptxas gave K1, K3 and K7 and their
+     resident CTAs an SM; K4 bit-equal to a second launch and to its
+     windowed plain model, its windows and the faces that cross them, K4
+     and zeros.index_add_ in turns, and K4 at a few small edge cases
+     (partial last window, empty segments, Fc = 1, one face on every texel);
   4. the frame path at full width: FramePipeline with StyleUNet-small 512
      renders 20 frames through render_frame and through render_frames,
      with launch counts, fps and a per-stage split;
@@ -33,10 +36,11 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      backward kernels) against the row-gather path's at the bench avatar;
  11. the raster variants (bf16 rows: K6; size classes with a resident
      table: K7, built by K9; streaming: K8): each kernel against its plain
-     version and against K1 at frame 0, 20 frames through render_frame
-     under each setting, a 64^2 frame GPU vs CPU, the frame's gradient
-     against the default path's, a 32^2 bf16 training step GPU vs CPU and
-     two full-width training steps under each setting;
+     version and against K1 at frame 0, the four forward blends in turns
+     (K7 shares K1's kernel), 20 frames through render_frame under each
+     setting, a 64^2 frame GPU vs CPU, the frame's gradient against the
+     default path's, a 32^2 bf16 training step GPU vs CPU and two
+     full-width training steps under each setting;
  12. the probe tools at their defaults (K1p in tools/ee_probe.py, T2
      tools/dma_bench.py over every variant, T3 and the payload sorts
      tools/sort_payload_bench.py, the seven T1 copy probes
@@ -45,8 +49,8 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      to K1, K1 and K1p timed in turns, every T2 variant against its plain
      version and its staged rows against index_select (T2 timed as the
      copies alone and with its in-order sum), T3 against table.sum(0) and
-     the float64 sum; each T1 probe beside one PyTorch call that writes the
-     same values.
+     the float64 sum; each T1 probe in turns with one PyTorch call that
+     writes the same values, with the bytes each must move.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -93,7 +97,8 @@ from guava_renderer_tpu_torch.kernels import gather_rows as k9  # noqa: E402
 from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
 from guava_renderer_tpu_torch.models.layers import harmonic_embedding  # noqa: E402
 from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
-from guava_renderer_tpu_torch.ops.facegather import build_face_sort_plan, compact_faces  # noqa: E402
+from guava_renderer_tpu_torch.ops.facegather import (  # noqa: E402
+    build_face_sort_plan, compact_faces, segment_starts)
 from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
     RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident, resident_count,
     resident_ids, round_colors_bf16, stream_rows)
@@ -147,6 +152,11 @@ K3_TOL = 1e-3
 # K4 against its plain version on the card (index_add_, atomic adds in any
 # order): |difference| <= K4_TOL * sum |drows| over the face's segment
 K4_TOL = 1e-6
+# K4's edge cases on the card, (N, Fc) of seeded sorted ids: a last window
+# only partly filled (N no multiple of k2.WINDOW), an empty segment between
+# bound faces (Fc >= 3), faces spanning many windows, Fc = 1, and one face
+# holding every texel with the last (dummy) face empty (Fc = 2)
+K4_EDGE_CASES = ((5000, 600), (4000, 9), (6148, 20), (4096, 1), (3072, 2))
 N_WARMUP_STEPS = 3
 N_TIMED_STEPS = 5
 TRAIN_LR = 1e-4                # configs/train/ubody_512.yaml
@@ -194,16 +204,46 @@ def cuda_ms(fn, reps=10, warmup=2):
     return device_ms(fn, DEV, reps, warmup)
 
 
-def ptxas_usage(mangled):
-    """The line ptxas printed for the kernel whose mangled name holds
-    `mangled` (registers, shared memory, spills), from this run's build."""
+def ptxas_usage(*mangled):
+    """The line ptxas printed for the kernel whose mangled name holds every
+    piece of `mangled` (registers, shared memory, spills), from this run's
+    build."""
     lines = build.build_log.splitlines()
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and mangled in ln:
+        if "Compiling entry function" in ln and all(m in ln for m in mangled):
             for nxt in lines[i + 1:i + 6]:
                 if "registers" in nxt:
                     return nxt.split(":", 1)[-1].strip()
     return "not in this run's build log"
+
+
+def k4_edge_cases():
+    """Phase 3: K4 on K4_EDGE_CASES, bit-equal to its windowed plain model,
+    within K4_TOL of index_add_, and zeros on the empty segments."""
+    g = np.random.default_rng(7)
+    for n, n_faces in K4_EDGE_CASES:
+        ids = np.sort(g.integers(0, n_faces, n)) if n_faces > 2 else np.zeros(n, np.int64)
+        if n_faces >= 3:
+            ids[ids == n_faces // 2] = n_faces // 2 + 1
+        seg = torch.as_tensor(segment_starts(ids, n_faces), device=DEV)
+        it = torch.as_tensor(ids, dtype=torch.int32, device=DEV)
+        drows = torch.as_tensor(g.normal(size=(16, n)).astype(np.float32), device=DEV)
+        got = k2.face_gather_bwd(drows, it, seg, n_faces)
+        want = k2.face_gather_bwd_plain(drows, it, n_faces)
+        room = K4_TOL * k2.face_gather_bwd_plain(drows.abs(), it, n_faces)
+        empty = (seg[1:] == seg[:-1]).nonzero().flatten()
+        if not torch.equal(got, k2.face_gather_bwd_windowed_plain(drows, it, seg, n_faces)):
+            raise SystemExit(f"K4 differs from its windowed plain model at N={n} Fc={n_faces}")
+        if not bool(((got - want).abs() <= room).all()):
+            raise SystemExit(f"K4 disagrees with index_add_ at N={n} Fc={n_faces}: max abs "
+                             f"{float((got - want).abs().max())}")
+        if not bool((got[empty] == 0).all()):
+            raise SystemExit(f"K4 gives an empty segment a nonzero sum at N={n} Fc={n_faces}")
+        lengths = (seg[1:] - seg[:-1]).cpu()
+        say(3, f"K4 edge case N={n} Fc={n_faces}: {-(-n // k2.WINDOW)} windows (the last holds "
+               f"{n - (n - 1) // k2.WINDOW * k2.WINDOW} texels), {int(empty.numel())} empty "
+               f"segments, longest {int(lengths.max())} texels; bit-equal to the windowed "
+               f"plain model, max abs vs index_add_ {float((got - want).abs().max()):.3g}")
 
 
 def in_turns(runs, cycles=2):
@@ -466,9 +506,9 @@ def blend_bound(rows_bytes, n_order, visited, contrib, tile=TILE):
     return max(n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3, by, n_bytes
 
 
-def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames):
+def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames, occ7):
     """Phase 11 (see the module docstring). -> the kernels-line entries of
-    K6, K7, K8 and K9."""
+    K6, K7, K8 and K9 (`occ7`: K7's occupancy from phase 3)."""
     variants = {"bf16": RasterizeSettings(tile=TILE, bf16_rows=True),
                 "vmem": RasterizeSettings(tile=TILE, size_classes=UBODY_LADDER, vmem_classes=2),
                 "stream": RasterizeSettings(tile=TILE, streaming=True)}
@@ -732,8 +772,9 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames)
     return [
         entry("K6 tile blend, bf16 rows", "blend_bf16.cu", 1093, frame_launches["bf16"]["K6"],
               err6, k6_ms, k6_plain_ms, k6_bound, k6_by, None),
-        entry("K7 tile blend, resident table", "blend_resident.cu", 1227,
-              frame_launches["vmem"]["K7"], err7, k7_ms, k7_plain_ms, k7_bound, k7_by, None),
+        {**entry("K7 tile blend, resident table", "blend_resident.cu", 1227,
+                 frame_launches["vmem"]["K7"], err7, k7_ms, k7_plain_ms, k7_bound, k7_by, None),
+         **occ7, "over_k1_in_turns": k7_ms / blend_ms["K1"]},
         entry("K8 tile blend, stream", "blend_stream.cu", 1350, frame_launches["stream"]["K8"],
               err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
         entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
@@ -742,11 +783,13 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames)
 
 
 def t1_bytes(name):
-    """Bytes a T1 probe must move: what it copies and what it writes."""
+    """(bytes a T1 probe must move: what it copies and what it writes; whether
+    it copies just the bytes it writes, as its library call moves them)."""
     at = (torch.zeros(kt1.LOOP_ROWS, dtype=torch.int32) if name == "row1_loop"
           else mosaic_probe.OFFSETS[name])
     c = kt1.plan(name, at)
-    return c.n_seg * c.seg_bytes + math.prod(c.out_shape) * 4
+    copied, written = c.n_seg * c.seg_bytes, math.prod(c.out_shape) * 4
+    return copied + written, copied == written
 
 
 def probe_tools(n_instances, visited, contrib):
@@ -884,16 +927,22 @@ def probe_tools(n_instances, visited, contrib):
     t3_ms = st["ms"]
     del tab, out3, lib3, st, sp["stream"]
 
-    # T1: the probes' own lines carry their numbers
+    # T1: the probes' own lines carry their numbers (each probe and its library call in turns)
     probes = []
     for r in t1 + t1_off:
+        bound_bytes, same_data = t1_bytes(r["name"])
         probes.append({"name": r["name"], "route": r["route"], "launches": r["launches"],
                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                       "library_ms": r["library_ms"],
-                       "bound_ms": t1_bytes(r["name"]) / HBM_BYTES_PER_S * 1e3})
-    say(12, "T1 copy probes, each equal to its plain version: "
-            + "; ".join(f"{p['name']} {p['route']} {p['ms']:.4f} ms (plain {p['plain_ms']:.4f}, "
-                        f"library {p['library_ms']:.4f})" for p in probes))
+                       "library_ms": r["library_ms"], "over_library": r["ms"] / r["library_ms"],
+                       "bytes": r["bytes"], "library_bytes": r["library_bytes"],
+                       "same_data_bytes": same_data,
+                       "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3})
+    say(12, "T1 copy probes, each equal to its plain version; each in turns with its library "
+            "call (probe, library, library, probe, twice; medians): "
+            + "; ".join(f"{p['name']} {p['route']} {p['ms']:.4f} ms, library {p['library_ms']:.4f} "
+                        f"({p['over_library']:.3f} x; moves {p['bytes']} B against "
+                        f"{p['library_bytes']} B{', the same data' if p['same_data_bytes'] else ''}"
+                        f"), plain {p['plain_ms']:.4f}" for p in probes))
 
     def entry(name, source, replaces, key, err, ms, plain_ms, bound, by, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"guava_renderer_tpu_torch/csrc/{source}",
@@ -975,6 +1024,8 @@ def main():
         seg = dplan.segment_starts
         drows = torch.randn((16, n_tex), generator=torch.Generator().manual_seed(4)).to(DEV)
         got4 = k2.face_gather_bwd(drows, ids, seg, n_faces)
+        again4 = k2.face_gather_bwd(drows, ids, seg, n_faces)
+        model4 = k2.face_gather_bwd_windowed_plain(drows, ids, seg, n_faces)
         want4 = k2.face_gather_bwd_plain(drows, ids, n_faces)
         want4_cpu = k2.face_gather_bwd_plain(drows.cpu(), ids.cpu(), n_faces).to(DEV)
         room4 = K4_TOL * k2.face_gather_bwd_plain(drows.abs(), ids, n_faces)
@@ -985,7 +1036,12 @@ def main():
                              f"{K4_TOL} of a segment's sum of |drows|")
         if not bool(((got4 - want4_cpu).abs() <= room4).all()):
             raise SystemExit("K4 disagrees with its plain version run on the CPU")
-        k4_equal_cpu = torch.equal(got4, want4_cpu)
+        if not torch.equal(got4, again4):
+            raise SystemExit("K4 gives other bits on a second launch")
+        if not torch.equal(got4, model4):
+            raise SystemExit(f"K4 differs from its windowed plain model: max abs "
+                             f"{float((got4 - model4).abs().max())}")
+        del again4, model4
         k4_plain_ms = cuda_ms(lambda: k2.face_gather_bwd_plain(drows, ids, n_faces))
         ids64 = ids.long()
         k4_turns = in_turns({
@@ -996,15 +1052,27 @@ def main():
         k4_ms, k4_lib_ms = k4_turns["K4"], k4_turns["index_add_"]
         k4_bytes = 16 * n_tex * 4 + n_tex * 4 + n_faces * 16 * 4
         k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
-        seg_len = seg[1:] - seg[:-1]
-        say(3, f"K4 face gather backward: N={n_tex} Fc={n_faces}, longest segment "
-               f"{int(seg_len.max())} texels (the dummy face's {int(seg_len[-1])}); max abs vs "
+        seg_len = (seg[1:] - seg[:-1]).cpu()
+        ids_cpu = ids.cpu()
+        k4_windows = -(-n_tex // k2.WINDOW)
+        edges = torch.arange(k2.WINDOW, n_tex, k2.WINDOW)
+        crossing = ids_cpu[edges][ids_cpu[edges] == ids_cpu[edges - 1]]
+        k4_carry_faces = int(torch.unique(crossing).numel())
+        dummy_windows = int((seg[-1] - 1) // k2.WINDOW - seg[-2] // k2.WINDOW + 1)
+        say(3, f"K4 face gather backward: N={n_tex} Fc={n_faces}, segments of mean "
+               f"{float(seg_len[:-1].float().mean()):.2f} texels, median "
+               f"{int(seg_len[:-1].median())}, longest real {int(seg_len[:-1].max())}, the "
+               f"dummy face's {int(seg_len[-1])} over {dummy_windows} windows; {k4_windows} "
+               f"windows of {k2.WINDOW} texels, {k4_carry_faces} faces cross a window edge "
+               f"(the second launch sums them); {k2.BWD_LAUNCHES} launches a call; max abs vs "
                f"plain on the card {err4:.3g} (held to {K4_TOL} of a segment's sum of |drows|: "
-               f"index_add_ adds atomically in any order), bit-equal to plain on the CPU "
-               f"(sequential, ascending texels): {k4_equal_cpu}; in turns (K4, index_add_, "
-               f"index_add_, K4, three times; medians) kernel {k4_ms:.4f} ms, zeros.index_add_ "
-               f"{k4_lib_ms:.4f} ms ({k4_ms / k4_lib_ms:.3f} x), plain {k4_plain_ms:.4f} ms, "
-               f"bound {k4_bound:.4f} ms ({k4_bytes / 1e6:.2f} MB)")
+               f"index_add_ adds atomically in any order; the same against plain on the CPU), "
+               f"bit-equal to a second launch and to the windowed plain model; in turns (K4, "
+               f"index_add_, index_add_, K4, three times; medians) kernel {k4_ms:.4f} ms, "
+               f"zeros.index_add_ {k4_lib_ms:.4f} ms "
+               f"({k4_ms / k4_lib_ms:.3f} x), plain {k4_plain_ms:.4f} ms, bound "
+               f"{k4_bound:.4f} ms ({k4_bytes / 1e6:.2f} MB)")
+        k4_edge_cases()
 
         gs = deform_avatar(avatar, sc.ehm, sc.faces, sc.base_body, sc.base_flame,
                            plan=dplan, compact_faces=cfaces)
@@ -1039,12 +1107,15 @@ def main():
         # counts from its plain version, per sub-tile and per warp (the kernels')
         geo = k1.subtile_geometry(SIZE, SIZE, TILE)
         occ = k1.occupancy(TILE)
-        say(3, f"K1/K3 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} threads "
-               f"({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic shared memory a "
-               f"CTA: K1 {occ['K1']['smem_bytes']} B, K3 {occ['K3']['smem_bytes']} B; resident "
-               f"CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): K1 "
-               f"{occ['K1']['ctas_per_sm']}, K3 {occ['K3']['ctas_per_sm']}; ptxas: K1 "
-               f"{ptxas_usage('16blend_fwd_kernel')}; K3 {ptxas_usage('16blend_bwd_kernel')}")
+        say(3, f"K1/K3/K7 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} "
+               f"threads ({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic shared memory "
+               f"a CTA: K1 {occ['K1']['smem_bytes']} B, K3 {occ['K3']['smem_bytes']} B, K7 "
+               f"{occ['K7']['smem_bytes']} B; resident CTAs an SM "
+               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor): K1 {occ['K1']['ctas_per_sm']}, "
+               f"K3 {occ['K3']['ctas_per_sm']}, K7 {occ['K7']['ctas_per_sm']}; ptxas: K1 "
+               f"{ptxas_usage('16blend_fwd_kernel', '9PlainRows')}; K3 "
+               f"{ptxas_usage('16blend_bwd_kernel')}; K7 "
+               f"{ptxas_usage('16blend_fwd_kernel', '12ResidentRows')}")
         walks = {}
         for tile_w in (TILE, 16):
             if tile_w == TILE:
@@ -1546,7 +1617,7 @@ def main():
          + (dgs.rotation * w_rot).sum()).backward()
         vgrads[path] = verts.grad
     planned_launches = {"K2": k2.launches, "K4": k2.bwd_launches}
-    if planned_launches != {"K2": 1, "K4": 1}:
+    if planned_launches != {"K2": 1, "K4": k2.BWD_LAUNCHES}:
         raise SystemExit(f"planned-path gradient: launches {planned_launches}")
     vscale = float(vgrads["rows"].abs().max())
     verr = float((vgrads["planned"] - vgrads["rows"]).abs().max()) / vscale
@@ -1559,7 +1630,8 @@ def main():
             f"{PLANNED_GRAD_TOL})")
 
     # ---- 11. the raster variants ----
-    variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq)
+    variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq,
+                                      occ["K7"])
 
     # ---- 12. the probe tools ----
     t12 = time.perf_counter()

@@ -170,7 +170,8 @@ __global__ void __launch_bounds__(kMaxSubThreads, 2) blend_bwd_kernel(
   const WarpBox box = warp_box(sub);
 
   const int warp = tid >> 5;
-  RowPipe<BwdStage> pipe(st, rows, order, ranges[sub.tile_id], ranges[sub.tile_id + 1], true);
+  RowPipe<BwdStage, PlainRows> pipe(st, PlainRows{rows}, order, ranges[sub.tile_id],
+                                    ranges[sub.tile_id + 1], true);
   if (tid == 0) stage_init(st);
   __syncthreads();
   pipe.prologue();

@@ -1,8 +1,8 @@
-// The whole-tile walk of the forward blend variants K6 (blend_bf16.cu), K7
-// (blend_resident.cu), K8 (blend_stream.cu) and the probe K1p
-// (blend_probe.cu): the walk K1 ran before it moved to sub-tile CTAs
-// (blend.cu, blend_subtile.cuh), which takes the same decisions on the same
-// rows and gives the same image bit for bit. The variants differ only in
+// The whole-tile walk of the forward blend variants K6 (blend_bf16.cu), K8
+// (blend_stream.cu) and the probe K1p (blend_probe.cu): the walk K1 and K7
+// ran before they moved to sub-tile CTAs (blend_subtile_fwd.cuh), which
+// takes the same decisions on the same rows and gives the same image bit
+// for bit. The variants differ only in
 // where a round's rows come from; `Stage` fills the shared buffer with the
 // f32 rows of instances base .. base + n - 1 of the tile's run, and
 // everything after it (the walk, the decisions, the sums, the output) is
@@ -35,7 +35,7 @@
 
 namespace guava_blend {
 
-// The rounds of K6, K7 and K8: kBatch rows each, the exit test before each.
+// The rounds of K6 and K8: kBatch rows each, the exit test before each.
 struct FullRounds {
   __device__ int rows_a_round() const { return kBatch; }
   __device__ bool exit_test_before(int) const { return true; }

@@ -1,8 +1,10 @@
-// The sub-tile walk shared by the forward tile blend K1 (blend.cu) and its
-// backward K3 (blend_bwd.cu): how a bin tile is cut into sub-tiles, one CTA
-// each; how a round's rows are staged, two buffers deep, by the bulk copy
-// engine; and the exact row cull that drops the rows no pixel of a warp
-// can take.
+// The sub-tile walk shared by the forward tile blend K1 (blend.cu), the
+// resident-table blend K7 (blend_resident.cu; both through
+// blend_subtile_fwd.cuh) and the backward K3 (blend_bwd.cu): how a bin tile
+// is cut into sub-tiles, one CTA each; how a round's rows are staged, two
+// buffers deep, by the bulk copy engine, from the address a row source
+// gives; and the exact row cull that drops the rows no pixel of a warp can
+// take.
 //
 // Sub-tiles. A bin tile (its instances order[ranges[t] : ranges[t + 1]])
 // is walked by (tile / sub)^2 CTAs of sub^2 pixels, one thread a pixel,
@@ -191,26 +193,51 @@ __device__ __forceinline__ void stage_init(Stage& st) {
   guava_copy::fence_barrier_init();
 }
 
+// Where the row of Gaussian id `gid` comes from: RowPipe's row source.
+// PlainRows: the (P, 44) table, for K1 and K3.
+struct PlainRows {
+  const float4* __restrict__ rows;
+  __device__ __forceinline__ const float4* row(int gid) const {
+    return rows + static_cast<int64_t>(gid) * kRow4;
+  }
+};
+
+// ResidentRows: K7's two tables. An id >= P (n_rows) reads the resident
+// table ltable (L = n_resident rows) at id - P, clipped to L - 1 as the TPU
+// kernel (guava_renderer_tpu/ops/gsplat.py:1227 _fwd_kernel_vmem) clips it;
+// any other id reads rows. Both tables' rows must start on 16 bytes.
+struct ResidentRows {
+  const float4* __restrict__ rows;
+  const float4* __restrict__ ltable;
+  int n_rows;
+  int n_resident;
+  __device__ __forceinline__ const float4* row(int gid) const {
+    return gid >= n_rows ? ltable + static_cast<int64_t>(min(gid - n_rows, n_resident - 1)) * kRow4
+                         : rows + static_cast<int64_t>(gid) * kRow4;
+  }
+};
+
 // The rounds of a CTA's run order[start : end] through a Stage. Round r is
 // its rows r R .. r R + R - 1 with R = min(rows a round, threads), so a
 // thread issues at most one row's copy a round, and it loads that row's
 // Gaussian id one issue ahead: the id's latency hides behind a round, and
 // the copy's behind the depth - 1 rounds in flight. Round r lives in buffer
-// r % depth, that buffer's (r / depth)-th use.
-template <class Stage>
+// r % depth, that buffer's (r / depth)-th use. `Src` (PlainRows,
+// ResidentRows) gives the address of a Gaussian's row.
+template <class Stage, class Src>
 struct RowPipe {
   static constexpr int kDepth = Stage::depth;
   Stage& st;
-  const float4* __restrict__ rows;
+  const Src src;
   const int* __restrict__ order;
   int start, end, R, n_rounds;
   int next;     // the next round to issue
   int gid;      // the id of this thread's row in round `next`
   bool gids;    // record the ids (the backward's flush reads them)
 
-  __device__ RowPipe(Stage& st_, const float4* rows_, const int* order_, int start_, int end_,
+  __device__ RowPipe(Stage& st_, const Src& src_, const int* order_, int start_, int end_,
                      bool gids_)
-      : st(st_), rows(rows_), order(order_), start(start_), end(end_), next(0), gid(0),
+      : st(st_), src(src_), order(order_), start(start_), end(end_), next(0), gid(0),
         gids(gids_) {
     R = min(Stage::rows_a_round, static_cast<int>(blockDim.x));
     n_rounds = (end - start + R - 1) / R;
@@ -228,8 +255,7 @@ struct RowPipe {
     if (t == 0) guava_copy::expect_bytes(&st.bar[b], n * kRowBytes);
     if (t < n) {
       if (gids) st.gids[b][t] = gid;
-      guava_copy::bulk_copy(&st.rows[b][t * kRow4], rows + static_cast<int64_t>(gid) * kRow4,
-                            kRowBytes, &st.bar[b]);
+      guava_copy::bulk_copy(&st.rows[b][t * kRow4], src.row(gid), kRowBytes, &st.bar[b]);
     }
     ++next;
     if (t < rows_in(next)) gid = order[start + next * R + t];

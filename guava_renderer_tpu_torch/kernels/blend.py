@@ -5,12 +5,13 @@ backward is K3; and K1p (`blend_probe`, `csrc/blend_probe.cu`), K1 with a
 count of the rounds each tile ran, for the early-exit probe
 (`tools/ee_probe.py`).
 
-K1 and K3 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8 at
+K1, K3 and K7 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8 at
 tile 8), one CTA each, and each warp drops the rows no pixel of its own
 8 x 4 block can take (`csrc/blend_subtile.cuh`); `subtile_geometry` and
-`cull_keep_plain` state that cut and that cull in PyTorch ops. K6, K7, K8
-and K1p walk whole tiles (`csrc/blend_fwd.cuh`). The images are the same
-bit for bit.
+`cull_keep_plain` state that cut and that cull in PyTorch ops. K1 and K7
+are one kernel (`csrc/blend_subtile_fwd.cuh`) with two row sources;
+`resident_source_plain` states K7's. K6, K8 and K1p walk whole tiles
+(`csrc/blend_fwd.cuh`). The images are the same bit for bit.
 
 `blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
 differentiable in `rows` and `bg`. For CUDA tensors their forwards launch
@@ -413,10 +414,20 @@ def blend_bf16_plain(packed, order, ranges, bg, height, width, tile):
     return blend_plain(unpack_rows_bf16(packed), order, ranges, bg, height, width, tile)
 
 
+def resident_source_plain(rows, ltable, order):
+    """K7's row source (`ResidentRows` in csrc/blend_subtile.cuh) in PyTorch
+    ops: the (P + L, 44) table whose row P + r is ltable[r], and `order` with
+    every id past P + L - 1 clipped to it, as the kernel (and the TPU
+    kernel) clips it. Instance i reads table[order'[i]]."""
+    table = torch.cat([rows, ltable])
+    return table, order.clamp(max=table.shape[0] - 1)
+
+
 def blend_resident_plain(rows, ltable, order, ranges, bg, height, width, tile):
-    """K7's contract in PyTorch ops: `blend_plain` on the (P + L, 44) table
-    whose row P + r is ltable[r], which is what an id P + r means."""
-    return blend_plain(torch.cat([rows, ltable]), order, ranges, bg, height, width, tile)
+    """K7's contract in PyTorch ops: `blend_plain` on the rows that
+    `resident_source_plain` gives each instance."""
+    return blend_plain(*resident_source_plain(rows, ltable, order), ranges, bg, height, width,
+                       tile)
 
 
 def blend_stream_plain(stream, ranges, bg, height, width, tile):
@@ -507,6 +518,8 @@ def forward_resident(rows, ltable, order, ranges, bg, height, width, tile):
                          f"{rows.device}, got {tuple(ltable.shape)} {ltable.dtype}")
     if rows.device.type == "cpu":
         return blend_resident_plain(rows, ltable, order, ranges, bg, height, width, tile)
+    if ltable.data_ptr() % 16:
+        raise ValueError("ltable must start on a 16-byte boundary (its rows are bulk copies)")
     out = _launch("guava_blend_resident_fwd",
                   (rows.data_ptr(), ltable.data_ptr(), rows.shape[0], ltable.shape[0],
                    order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
@@ -553,13 +566,14 @@ def blend_probe(rows, order, ranges, bg, height, width, tile, chunk, exit_every)
 
 
 def occupancy(tile):
-    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}}: CTAs of the
-    built K1 and K3 resident on one SM at once at this tile
+    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}, "K7": {...}}:
+    CTAs of the built K1, K3 and K7 resident on one SM at once at this tile
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the dynamic shared
     memory each CTA takes."""
     lib = build.library()
     out = {}
-    for key, entry in (("K1", "guava_blend_fwd_occupancy"), ("K3", "guava_blend_bwd_occupancy")):
+    for key, entry in (("K1", "guava_blend_fwd_occupancy"), ("K3", "guava_blend_bwd_occupancy"),
+                       ("K7", "guava_blend_resident_occupancy")):
         n, smem = ctypes.c_int(0), ctypes.c_int(0)
         build.check(getattr(lib, entry)(tile, ctypes.addressof(n), ctypes.addressof(smem)),
                     entry)

@@ -10,11 +10,12 @@ engine where offsets and sizes are multiples of 16 bytes, else 4-byte
 cp.async. One line a probe:
 
     EXP <name> OK route=<bulk|async4> err=<max abs vs plain> launches=<n> ms=<ms> plain_ms=<ms>
-        library_ms=<ms>
+        library_ms=<ms> bytes=<B> library_bytes=<B>
     EXP <name> FAIL <reason>
 
 (on one line; library_ms is one PyTorch call that writes the same values,
-`library_call`).
+`library_call`, timed in turns with the probe; bytes and library_bytes are
+what each must move, `moved_bytes`).
 
 Each probe runs in a subprocess of its own, all at once, since a copy that
 faults poisons the process's CUDA context. --unaligned moves the index
@@ -26,6 +27,8 @@ slices' starts off a 16-byte boundary (the async4 route).
 from __future__ import annotations
 
 import argparse
+import math
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -34,7 +37,8 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import build
-from ..kernels.copy_probe import LOOP_ROWS, PROBES, SOURCES, copy_probe, copy_probe_plain, route
+from ..kernels.copy_probe import (LOOP_ROWS, PROBES, SOURCES, copy_probe, copy_probe_plain, plan,
+                                  route)
 from . import device_ms
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -72,8 +76,22 @@ def library_call(name: str, src: torch.Tensor, at):
     return lambda: src.narrow_copy(0, first, 1)
 
 
+def moved_bytes(name: str, at) -> tuple[int, int]:
+    """(probe, library call): the bytes each must move. The probe reads its
+    copied segments (and row1_loop its 32 int32 ids) and writes its output;
+    the library call reads and writes the output's bytes (index_select also
+    reads its 32 int64 ids)."""
+    c = plan(name, at)
+    out = 4 * math.prod(c.out_shape)
+    if c.ids is not None:
+        return c.n_seg * c.seg_bytes + 4 * c.n_seg + out, 2 * out + 8 * c.n_seg
+    return c.n_seg * c.seg_bytes + out, 2 * out
+
+
 def run_probe(name: str, device, unaligned: bool = False, iters: int = 20) -> dict:
-    """One probe in this process: kernel against plain version, and times."""
+    """One probe in this process: kernel against plain version, and times;
+    the probe and its library call in turns (probe, library, library, probe,
+    twice; medians), so that drift favours neither."""
     src, at = probe_inputs(name, device, unaligned)
     got = copy_probe(name, src, at)
     want = copy_probe_plain(name, src, at)
@@ -83,9 +101,15 @@ def run_probe(name: str, device, unaligned: bool = False, iters: int = 20) -> di
     err = float((got.double() - want.double()).abs().max())
     res = {"name": name, "route": route(name, at), "err": err,
            "equal": bool(torch.equal(got, want))}
-    res["ms"] = device_ms(lambda: copy_probe(name, src, at), device, iters)
+    res["bytes"], res["library_bytes"] = moved_bytes(name, at)
+    turns = {"ms": [], "library_ms": []}
+    for _ in range(2):
+        for key, fn in (("ms", lambda: copy_probe(name, src, at)), ("library_ms", lib),
+                        ("library_ms", lib), ("ms", lambda: copy_probe(name, src, at))):
+            turns[key].append(device_ms(fn, device, iters))
+    for key, times in turns.items():
+        res[key] = None if None in times else statistics.median(times)
     res["plain_ms"] = device_ms(lambda: copy_probe_plain(name, src, at).clone(), device, iters)
-    res["library_ms"] = device_ms(lib, device, iters)
     return res
 
 
@@ -102,13 +126,14 @@ def _child(name: str, device: str, unaligned: bool, iters: int) -> int:
         print(f"EXP {name} FAIL differs from its plain version: max abs {r['err']}", flush=True)
         return 1
     print(f"EXP {name} OK route={r['route']} err={r['err']:g} launches={kcp.launches} "
-          f"ms={r['ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']}", flush=True)
+          f"ms={r['ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
+          f"bytes={r['bytes']} library_bytes={r['library_bytes']}", flush=True)
     return 0
 
 
 def parse_line(line: str) -> dict:
-    """An `EXP` line -> {name, ok, route, err, launches, ms, plain_ms, library_ms} (or
-    reason)."""
+    """An `EXP` line -> {name, ok, route, err, launches, ms, plain_ms, library_ms, bytes,
+    library_bytes} (or reason)."""
     parts = line.split()
     res = {"name": parts[1], "ok": parts[2] == "OK"}
     if not res["ok"]:
@@ -117,7 +142,8 @@ def parse_line(line: str) -> dict:
     for kv in parts[3:]:
         k, v = kv.split("=", 1)
         res[k] = v if k == "route" else (None if v == "None" else float(v))
-    res["launches"] = int(res["launches"])
+    for k in ("launches", "bytes", "library_bytes"):
+        res[k] = int(res[k])
     return res
 
 

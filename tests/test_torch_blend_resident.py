@@ -169,6 +169,47 @@ def test_resident_blend_kernel_contract():
         assert torch.equal(x, y)
 
 
+def test_resident_walk_is_k1_walk():
+    """The plain model of what K7 walks since it shares K1's kernel: the cull
+    (`cull_keep_plain`) and the culled walk (`blend_culled_plain`) on the rows
+    the resident row source gives each instance (`resident_source_plain` of
+    rows, rows[lids] and the remapped order) equal K1's on (rows, original
+    order), bit for bit, and the blend's plain version."""
+    arrs = spaced_scene(4, P=40)
+    _, tc = make_cams(SIZE)
+    prep = tgs.rasterize_prep(*_t(arrs), tc, tgs.RasterizeSettings(tile=TILE))
+    proj = tproject(*_t((arrs[0], arrs[3], arrs[4], arrs[2])), tc)
+    rows = prep.rows.detach()
+    lids = tgs.resident_ids(proj, SIZE, SIZE, TILE, 12)
+    ltable = tk9.gather_rows(rows, lids)
+    order_r = tgs.remap_resident(prep.order, lids, rows.shape[0])
+    assert (order_r >= rows.shape[0]).any()
+    table, order_src = tk.resident_source_plain(rows, ltable, order_r)
+    img = (SIZE, SIZE, TILE)
+    keep_r = tk.cull_keep_plain(table, order_src, prep.ranges, *img)
+    keep_1 = tk.cull_keep_plain(rows, prep.order, prep.ranges, *img)
+    assert torch.equal(keep_r, keep_1) and not bool(keep_1.all())
+    bg = torch.linspace(0, 1, C)
+    got = tk.blend_culled_plain(table, order_src, prep.ranges, bg, *img)
+    want = tk.blend_culled_plain(rows, prep.order, prep.ranges, bg, *img)
+    plain = tk.blend_plain(rows, prep.order, prep.ranges, bg, *img)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g, p)
+
+
+def test_resident_source_clips_ids_past_the_table():
+    """An id >= P + L reads the resident table's last row, as the kernel and
+    the TPU kernel clip it; ids below P read the table, P + r ltable[r]."""
+    rows = torch.arange(5 * tk.ROW, dtype=torch.float32).reshape(5, tk.ROW)
+    ltable = -rows[[3, 1]]
+    order = torch.tensor([0, 4, 5, 6, 7, 9], dtype=torch.int32)
+    table, order_src = tk.resident_source_plain(rows, ltable, order)
+    assert order_src.tolist() == [0, 4, 5, 6, 6, 6]
+    read = table[order_src.long()]
+    assert torch.equal(read[:2], rows[[0, 4]])
+    assert torch.equal(read[2:], ltable[[0, 1, 1, 1]])
+
+
 def _big_behind_camera(P):
     """P tiny Gaussians behind the camera: they bin nothing."""
     means = np.zeros((P, 3), np.float32)

@@ -99,6 +99,118 @@ def test_backward_function_on_cpu_is_the_plain_version(case):
     assert torch.equal(got, want)
 
 
+# ---- K4's windowed order (csrc/facegather_bwd.cu) in its plain model ----
+
+# K4 against the sequential sum, per face: within this share of the face's
+# sum of |drows| (the chip run holds the kernel to it against index_add_)
+K4_TOL = 1e-6
+WINDOW = tk2.WINDOW
+
+
+WINDOWED_PLANS = {
+    # name: (binding, valid), each from a seeded draw; N a multiple of 256, as plans require
+    # the dummy face: 1,536 invalid texels against 2,560 valid ones on 320 faces (192x the
+    # mean real segment), over six windows
+    "dummy_heavy": lambda rng: (rng.integers(0, 320, 4096), np.arange(4096) < 2560),
+    # every texel binds one face: sixteen windows, no face starts in fifteen of them
+    "one_face": lambda rng: (np.full(4096, 7), np.ones(4096, bool)),
+    # Fc = 1: every texel invalid, all on the dummy face
+    "only_dummy": lambda rng: (rng.integers(0, 50, 3072), np.zeros(3072, bool)),
+    # segments of 1 to ~60 texels
+    "geometric": lambda rng: (np.minimum(rng.geometric(0.05, 3328), 400),
+                              rng.uniform(size=3328) < 0.9),
+    # all valid: the dummy face's segment is empty
+    "empty_dummy": lambda rng: (rng.integers(0, 700, 2048), np.ones(2048, bool)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(WINDOWED_PLANS))
+def windowed_case(request):
+    rng = np.random.default_rng(17)
+    binding, valid = WINDOWED_PLANS[request.param](rng)
+    jplan = jfg.build_face_sort_plan(binding, valid)
+    tplan = tfg.build_face_sort_plan(binding, valid)
+    w = rng.normal(size=(16, tplan.n_texels)).astype(np.float32)
+    return dict(name=request.param, jplan=jplan, tplan=tplan, w=w)
+
+
+def _windowed(tp, drows):
+    return tk2.face_gather_bwd_windowed_plain(drows, torch.as_tensor(tp.compact_ids),
+                                              torch.as_tensor(tp.segment_starts), tp.n_compact)
+
+
+def _assert_within_k4_tol(got, drows, ids, n_faces):
+    want = tk2.face_gather_bwd_plain(drows, ids, n_faces)
+    room = K4_TOL * tk2.face_gather_bwd_plain(drows.abs(), ids, n_faces)
+    assert bool(((got - want).abs() <= room).all()), float((got - want).abs().max())
+
+
+def test_windowed_cases_hold_what_they_name(windowed_case):
+    tp = windowed_case["tplan"]
+    lengths = np.diff(tp.segment_starts)
+    crossings = len({int(tp.compact_ids[t]) for t in range(WINDOW, tp.n_texels, WINDOW)
+                     if tp.compact_ids[t - 1] == tp.compact_ids[t]})
+    name = windowed_case["name"]
+    if name == "dummy_heavy":
+        assert lengths[-1] >= 100 * lengths[:-1].mean() and crossings >= 1
+    elif name in ("one_face", "only_dummy"):
+        assert lengths.max() == tp.n_texels and tp.n_texels >= 3 * WINDOW
+        assert tp.n_compact == (1 if name == "only_dummy" else 2)
+    elif name == "geometric":
+        assert lengths[:-1].max() > 2 * lengths[:-1].mean() and crossings >= 1
+    else:
+        assert lengths[-1] == 0
+
+
+def test_windowed_backward_vs_plain(windowed_case):
+    """The kernel's order against the sequential sum (index_add_ on the CPU),
+    within K4_TOL of each face's sum of |drows|."""
+    tp = windowed_case["tplan"]
+    drows = torch.tensor(windowed_case["w"])
+    _assert_within_k4_tol(_windowed(tp, drows), drows, torch.as_tensor(tp.compact_ids),
+                          tp.n_compact)
+
+
+def test_windowed_backward_vs_jax_grad(windowed_case):
+    """The kernel's order against jax.grad through the Pallas kernel pair (in
+    interpret mode), as test_plain_backward_vs_jax_grad holds the plain
+    version."""
+    jp = windowed_case["jplan"]
+    ids = jnp.asarray(jp.compact_ids)
+    w = windowed_case["w"]
+    table = np.zeros((jp.n_compact, 16), np.float32)
+    want = jax.grad(lambda t: jnp.sum(jfg.face_window_gather(t, ids, jp) * jnp.asarray(w)))(
+        jnp.asarray(table))
+    got = _windowed(windowed_case["tplan"], torch.tensor(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def test_windowed_backward_is_deterministic(windowed_case):
+    tp = windowed_case["tplan"]
+    drows = torch.tensor(windowed_case["w"])
+    assert torch.equal(_windowed(tp, drows), _windowed(tp, drows))
+
+
+@pytest.mark.parametrize("n,n_faces", [(5000, 600), (777, 50), (130, 400), (1, 3), (6149, 20),
+                                       (2560, 9)])
+def test_windowed_backward_with_empty_segments(n, n_faces):
+    """Sorted ids that leave faces unbound before, between and after the
+    bound ones (not only the dummy face): those faces get zeros. N is mostly
+    no multiple of the window, and few faces on many texels cross several
+    windows each."""
+    rng = np.random.default_rng(n)
+    ids = np.sort(rng.integers(0, n_faces, n))
+    ids[ids == n_faces // 2] = n_faces // 2 + 1
+    seg = torch.as_tensor(tfg.segment_starts(ids, n_faces))
+    assert bool((seg[1:] == seg[:-1]).any())
+    drows = torch.tensor(rng.normal(size=(16, n)).astype(np.float32))
+    it = torch.as_tensor(ids, dtype=torch.int32)
+    got = tk2.face_gather_bwd_windowed_plain(drows, it, seg, n_faces)
+    _assert_within_k4_tol(got, drows, it, n_faces)
+    empty = (seg[1:] == seg[:-1]).nonzero().flatten()
+    assert bool((got[empty] == 0).all())
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype"])
 def test_backward_rejects_bad_inputs(bad):
     ids = torch.zeros(8, dtype=torch.int32)

@@ -222,4 +222,23 @@ def test_mosaic_probe_main_on_cpu(capsys):
     res = mosaic_probe.main(["--device", "cpu", "--exp", "idx32", "--unaligned", "--iters", "1"])
     assert capsys.readouterr().out.startswith("EXP idx32 OK route=async4 err=0 launches=0")
     assert res == [{"name": "idx32", "ok": True, "route": "async4", "err": 0.0, "launches": 0,
-                    "ms": None, "plain_ms": None, "library_ms": None}]
+                    "ms": None, "plain_ms": None, "library_ms": None, "bytes": 132,
+                    "library_bytes": 8}]
+
+
+@pytest.mark.parametrize("name", kcp.PROBES)
+def test_copy_probe_moved_bytes(name):
+    """What a probe and its library call must move: the probe its copied
+    segments and its output, the call its output read and written. Only the
+    row probes that copy exactly the row they write (row1, row64, row1_loop)
+    move the same data bytes both ways."""
+    src, at = mosaic_probe.probe_inputs(name, "cpu")
+    probe, library = mosaic_probe.moved_bytes(name, at)
+    out = kcp.copy_probe_plain(name, src, at)
+    out_bytes = out.numel() * out.element_size()
+    copied = {"idx32": 128, "idx1024": 4096, "idx2d": 1024, "row1": 512, "row1_loop": 16384,
+              "row8": 4096, "row64": 256}[name]
+    ids = 128 if name == "row1_loop" else 0
+    assert probe == copied + ids + out_bytes
+    assert library == 2 * out_bytes + 2 * ids
+    assert (copied == out_bytes) == (name in ("row1", "row64", "row1_loop"))
