@@ -11,7 +11,7 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      events, medians); K1's sub-tile walk against the whole-tile walk it
      replaced (K1p at (256, 1)) bit for bit and in turns, at tile 32 and on
      a tile-16 binning of the same frame, with the cull's kept rows, the
-     registers and shared memory ptxas gave K1, K3 and K7 and their
+     registers and shared memory ptxas gave K1, K3, K7 and K6 and their
      resident CTAs an SM; K4 bit-equal to a second launch and to its
      windowed plain model, its windows and the faces that cross them, K4
      and zeros.index_add_ in turns, and K4 at a few small edge cases
@@ -37,20 +37,24 @@ Phases (one line each, then a JSON line of the kernels, then a last line
  11. the raster variants (bf16 rows: K6; size classes with a resident
      table: K7, built by K9; streaming: K8): each kernel against its plain
      version and against K1 at frame 0, the four forward blends in turns
-     (K7 shares K1's kernel), 20 frames through render_frame under each
+     (K7 and K6 share K1's kernel), 20 frames through render_frame under each
      setting, a 64^2 frame GPU vs CPU, the frame's gradient against the
      default path's, a 32^2 bf16 training step GPU vs CPU and two
      full-width training steps under each setting;
  12. the probe tools at their defaults (K1p in tools/ee_probe.py, T2
      tools/dma_bench.py over every variant, T3 and the payload sorts
      tools/sort_payload_bench.py, the seven T1 copy probes
-     tools/mosaic_probe.py, each in a subprocess), with launch counts; then
+     tools/mosaic_probe.py, each in a subprocess of its own, one after
+     another, aligned, then off alignment those whose route that changes
+     (idx32 and idx1024 to async4), so both routes run), with launch
+     counts; then
      K1p against its plain version at five (chunk, exit_every) and bit-equal
      to K1, K1 and K1p timed in turns, every T2 variant against its plain
      version and its staged rows against index_select (T2 timed as the
      copies alone and with its in-order sum), T3 against table.sum(0) and
      the float64 sum; each T1 probe in turns with one PyTorch call that
-     writes the same values, with the bytes each must move.
+     writes the same values and the launch floor (one near-empty kernel),
+     with the bytes each must move.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -188,6 +192,10 @@ CREATE_LIMIT_MS = 1000.0       # the reference's "sub-second" creation
 # a row of the table dropped or added moves a column by up to 2.5e-6)
 K1P_SETTINGS = ((32, 1), (32, 4), (32, 0), (64, 1), (256, 1))
 T2_VARIANTS = "contig:1,rows:1,rows:4,rows_pipe:1,contig_pipe:1,rows_pipe_bf16:1,rows_pipe_2rows:1"
+# T1 off alignment: the probes whose route that changes (idx32 and idx1024 to async4); the
+# others take the bulk route again one element or row away
+T1_OFF_ROUTE = ",".join(n for n, at in mosaic_probe.OFFSETS.items()
+                        if kt1.route(n, at + 1) != kt1.route(n, at))
 T2_RTOL = 1e-6
 T3_RTOL = 1e-5
 T3_F64_RTOL = 2e-6
@@ -211,9 +219,12 @@ def ptxas_usage(*mangled):
     lines = build.build_log.splitlines()
     for i, ln in enumerate(lines):
         if "Compiling entry function" in ln and all(m in ln for m in mangled):
+            spills = ""
             for nxt in lines[i + 1:i + 6]:
+                if "spill" in nxt:
+                    spills = "; " + nxt.strip()
                 if "registers" in nxt:
-                    return nxt.split(":", 1)[-1].strip()
+                    return nxt.split(":", 1)[-1].strip() + spills
     return "not in this run's build log"
 
 
@@ -506,9 +517,9 @@ def blend_bound(rows_bytes, n_order, visited, contrib, tile=TILE):
     return max(n_bytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3, by, n_bytes
 
 
-def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames, occ7):
+def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames, occ):
     """Phase 11 (see the module docstring). -> the kernels-line entries of
-    K6, K7, K8 and K9 (`occ7`: K7's occupancy from phase 3)."""
+    K6, K7, K8 and K9 (`occ`: the blends' occupancy from phase 3)."""
     variants = {"bf16": RasterizeSettings(tile=TILE, bf16_rows=True),
                 "vmem": RasterizeSettings(tile=TILE, size_classes=UBODY_LADDER, vmem_classes=2),
                 "stream": RasterizeSettings(tile=TILE, streaming=True)}
@@ -770,11 +781,12 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
                 "bound_by": by, "library_ms": lib}
 
     return [
-        entry("K6 tile blend, bf16 rows", "blend_bf16.cu", 1093, frame_launches["bf16"]["K6"],
-              err6, k6_ms, k6_plain_ms, k6_bound, k6_by, None),
+        {**entry("K6 tile blend, bf16 rows", "blend_bf16.cu", 1093, frame_launches["bf16"]["K6"],
+                 err6, k6_ms, k6_plain_ms, k6_bound, k6_by, None),
+         **occ["K6"], "over_k1_in_turns": k6_ms / blend_ms["K1"]},
         {**entry("K7 tile blend, resident table", "blend_resident.cu", 1227,
                  frame_launches["vmem"]["K7"], err7, k7_ms, k7_plain_ms, k7_bound, k7_by, None),
-         **occ7, "over_k1_in_turns": k7_ms / blend_ms["K1"]},
+         **occ["K7"], "over_k1_in_turns": k7_ms / blend_ms["K1"]},
         entry("K8 tile blend, stream", "blend_stream.cu", 1350, frame_launches["stream"]["K8"],
               err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
         entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
@@ -803,7 +815,7 @@ def probe_tools(n_instances, visited, contrib):
     dma = dma_bench.main(["--variants", T2_VARIANTS, "--iters", "20"])
     sp = sort_payload_bench.main(["--iters", "10"])
     t1 = mosaic_probe.main(["--iters", "20"])
-    t1_off = mosaic_probe.main(["--iters", "20", "--unaligned", "--exp", "idx32,idx1024"])
+    t1_off = mosaic_probe.main(["--iters", "20", "--unaligned", "--exp", T1_OFF_ROUTE])
     launches = {"K1p": k1.probe_launches, "T1": sum(r.get("launches", 0) for r in t1),
                 "T2": kt2.launches, "T3": kt3.launches}
     tools_s = time.perf_counter() - t0
@@ -934,15 +946,18 @@ def probe_tools(n_instances, visited, contrib):
         probes.append({"name": r["name"], "route": r["route"], "launches": r["launches"],
                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                        "library_ms": r["library_ms"], "over_library": r["ms"] / r["library_ms"],
+                       "floor_ms": r["floor_ms"],
                        "bytes": r["bytes"], "library_bytes": r["library_bytes"],
                        "same_data_bytes": same_data,
                        "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3})
-    say(12, "T1 copy probes, each equal to its plain version; each in turns with its library "
-            "call (probe, library, library, probe, twice; medians): "
+    say(12, f"T1 copy probes, aligned then {T1_OFF_ROUTE} off alignment, one at a time, each "
+            "equal to its plain version; each in turns with its library call and the launch "
+            "floor (probe, library, floor, floor, library, probe, twice; medians): "
             + "; ".join(f"{p['name']} {p['route']} {p['ms']:.4f} ms, library {p['library_ms']:.4f} "
                         f"({p['over_library']:.3f} x; moves {p['bytes']} B against "
                         f"{p['library_bytes']} B{', the same data' if p['same_data_bytes'] else ''}"
-                        f"), plain {p['plain_ms']:.4f}" for p in probes))
+                        f"), floor {p['floor_ms']:.4f}, plain {p['plain_ms']:.4f}"
+                        for p in probes))
 
     def entry(name, source, replaces, key, err, ms, plain_ms, bound, by, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"guava_renderer_tpu_torch/csrc/{source}",
@@ -1107,15 +1122,16 @@ def main():
         # counts from its plain version, per sub-tile and per warp (the kernels')
         geo = k1.subtile_geometry(SIZE, SIZE, TILE)
         occ = k1.occupancy(TILE)
-        say(3, f"K1/K3/K7 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} "
+        ptxas = {"K1": ptxas_usage("16blend_fwd_kernel", "9PlainRows"),
+                 "K3": ptxas_usage("16blend_bwd_kernel"),
+                 "K7": ptxas_usage("16blend_fwd_kernel", "12ResidentRows"),
+                 "K6": ptxas_usage("16blend_fwd_kernel", "14PackedBf16Rows")}
+        say(3, f"K1/K3/K7/K6 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} "
                f"threads ({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic shared memory "
-               f"a CTA: K1 {occ['K1']['smem_bytes']} B, K3 {occ['K3']['smem_bytes']} B, K7 "
-               f"{occ['K7']['smem_bytes']} B; resident CTAs an SM "
-               f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor): K1 {occ['K1']['ctas_per_sm']}, "
-               f"K3 {occ['K3']['ctas_per_sm']}, K7 {occ['K7']['ctas_per_sm']}; ptxas: K1 "
-               f"{ptxas_usage('16blend_fwd_kernel', '9PlainRows')}; K3 "
-               f"{ptxas_usage('16blend_bwd_kernel')}; K7 "
-               f"{ptxas_usage('16blend_fwd_kernel', '12ResidentRows')}")
+               f"a CTA: " + ", ".join(f"{k} {occ[k]['smem_bytes']} B" for k in ptxas)
+               + "; resident CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+               + ", ".join(f"{k} {occ[k]['ctas_per_sm']}" for k in ptxas) + "; ptxas: "
+               + "; ".join(f"{k} {v}" for k, v in ptxas.items()))
         walks = {}
         for tile_w in (TILE, 16):
             if tile_w == TILE:
@@ -1630,8 +1646,7 @@ def main():
             f"{PLANNED_GRAD_TOL})")
 
     # ---- 11. the raster variants ----
-    variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq,
-                                      occ["K7"])
+    variant_kernels = raster_variants(sc, avatar, dplan, cfaces, refiner, targets, seq, occ)
 
     # ---- 12. the probe tools ----
     t12 = time.perf_counter()

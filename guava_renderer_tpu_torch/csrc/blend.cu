@@ -35,7 +35,7 @@
 //     and _cull_qcut, four rows a lane); the survivors' bits form a mask in
 //     registers that the walk iterates, so rows that no pixel of the warp
 //     can take are not walked, and no barrier waits for the cull.
-//  4. The same per-pixel arithmetic as the walk of K6, K8 and K1p
+//  4. The same per-pixel arithmetic as the walk of K8 and K1p
 //     (blend_fwd.cuh): gauss_power, next_t, the thresholds and the explicit
 //     fused multiply-adds, on the same rows in the same order minus rows the
 //     pixel would have skipped. The image is that walk's bit for bit. A
@@ -44,8 +44,9 @@
 // Rows are 44 floats (8 geometry + 32 colors + invdepth + 3 pad), not the
 // TPU's 128-lane row, which existed only for DMA alignment. The image is
 // written directly in (H, W, 32) layout. The kernel is
-// blend_subtile_fwd.cuh:blend_fwd_kernel, instantiated here with PlainRows
-// and in blend_resident.cu (K7) with its resident table's ResidentRows.
+// blend_subtile_fwd.cuh:blend_fwd_kernel, instantiated here with PlainRows,
+// in blend_resident.cu (K7) with its resident table's ResidentRows and in
+// blend_bf16.cu (K6) with its packed rows' PackedBf16Rows.
 
 #include <cuda_runtime.h>
 

@@ -1,13 +1,12 @@
-// The whole-tile walk of the forward blend variants K6 (blend_bf16.cu), K8
-// (blend_stream.cu) and the probe K1p (blend_probe.cu): the walk K1 and K7
-// ran before they moved to sub-tile CTAs (blend_subtile_fwd.cuh), which
-// takes the same decisions on the same rows and gives the same image bit
-// for bit. The variants differ only in
-// where a round's rows come from; `Stage` fills the shared buffer with the
-// f32 rows of instances base .. base + n - 1 of the tile's run, and
-// everything after it (the walk, the decisions, the sums, the output) is
-// this one function. So two variants given the same f32 rows give the same
-// image bit for bit, and K3 (blend_bwd.cu) replays any of them from those
+// The whole-tile walk of the stream blend K8 (blend_stream.cu) and the
+// probe K1p (blend_probe.cu): the walk K1, K7 and K6 ran before they moved
+// to sub-tile CTAs (blend_subtile_fwd.cuh), which takes the same decisions
+// on the same rows and gives the same image bit for bit. The two differ
+// only in where a round's rows come from; `Stage` fills the shared buffer
+// with the f32 rows of instances base .. base + n - 1 of the tile's run,
+// and everything after it (the walk, the decisions, the sums, the output)
+// is this one function. So two kernels given the same f32 rows give the
+// same image bit for bit, and K3 (blend_bwd.cu) replays either from those
 // rows.
 //
 // One CTA per tile, one thread per pixel, as in the reference's renderCUDA:
@@ -20,10 +19,10 @@
 //
 // `Walk` sets the rounds: how many rows each stages, before which rounds the
 // tile tests whether every pixel is done, and what it does with the count
-// of rounds it ran. The variants take `FullRounds` (kBatch rows, the test
-// before every round, no count); the probe K1p (blend_probe.cu) stages
-// fewer rows a round, tests more rarely and writes the count. A pixel's
-// decisions do not depend on the rounds, so every Walk gives the same image.
+// of rounds it ran. K8 takes `FullRounds` (kBatch rows, the test before
+// every round, no count); the probe K1p (blend_probe.cu) stages fewer rows a
+// round, tests more rarely and writes the count. A pixel's decisions do not
+// depend on the rounds, so every Walk gives the same image.
 
 #pragma once
 
@@ -35,7 +34,7 @@
 
 namespace guava_blend {
 
-// The rounds of K6 and K8: kBatch rows each, the exit test before each.
+// The rounds of K8: kBatch rows each, the exit test before each.
 struct FullRounds {
   __device__ int rows_a_round() const { return kBatch; }
   __device__ bool exit_test_before(int) const { return true; }

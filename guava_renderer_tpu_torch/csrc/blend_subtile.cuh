@@ -1,10 +1,10 @@
 // The sub-tile walk shared by the forward tile blend K1 (blend.cu), the
-// resident-table blend K7 (blend_resident.cu; both through
-// blend_subtile_fwd.cuh) and the backward K3 (blend_bwd.cu): how a bin tile
-// is cut into sub-tiles, one CTA each; how a round's rows are staged, two
-// buffers deep, by the bulk copy engine, from the address a row source
-// gives; and the exact row cull that drops the rows no pixel of a warp can
-// take.
+// resident-table blend K7 (blend_resident.cu), the bf16-row blend K6
+// (blend_bf16.cu; the three through blend_subtile_fwd.cuh) and the backward
+// K3 (blend_bwd.cu): how a bin tile is cut into sub-tiles, one CTA each; how
+// a round's rows are staged, two buffers deep, by the bulk copy engine,
+// from the address a row source gives; and the exact row cull that drops
+// the rows no pixel of a warp can take.
 //
 // Sub-tiles. A bin tile (its instances order[ranges[t] : ranges[t + 1]])
 // is walked by (tile / sub)^2 CTAs of sub^2 pixels, one thread a pixel,
@@ -19,10 +19,11 @@
 // warps) hold no pixel.
 //
 // Staging. A round is up to a Stage's rows_a_round rows (K1 128, K3 64).
-// Each row is one 176-byte bulk copy, issued by one thread, that completes
-// on its buffer's mbarrier; the barrier expects the round's bytes. With a
-// Stage of depth buffers, round r + depth - 1 is issued as round r starts,
-// so the copies land while earlier rounds are culled and walked (RowPipe).
+// Each row is one bulk copy of the Stage's row_bytes (176; K6's packed rows
+// 112), issued by one thread, that completes on its buffer's mbarrier; the
+// barrier expects the round's bytes. With a Stage of depth buffers, round
+// r + depth - 1 is issued as round r starts, so the copies land while
+// earlier rounds are culled and walked (RowPipe).
 //
 // The cull. Once a round has landed, each warp tests the round's rows (one
 // lane a row) against the box of its own pixel centres (8 x 4 in a
@@ -56,6 +57,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "blend_bf16_rows.cuh"
 #include "blend_common.cuh"
 
 namespace guava_blend {
@@ -160,10 +162,53 @@ struct RowStage {
   static constexpr int rows_a_round = kRows;
   static constexpr int depth = kDepth;
   static constexpr int words = kRows / 32;   // words of a round's keep mask
+  static constexpr uint32_t row_bytes = kRowBytes;
   float4 rows[kDepth][kRows * kRow4];
   uint64_t bar[kDepth];
   int gids[kDepth][kRows];
+  // where row t of buffer b lands
+  __device__ __forceinline__ void* landing(int b, int t) { return &rows[b][t * kRow4]; }
+  // The f32 rows of buffer b, which holds n landed rows. Called by every
+  // thread, after it has waited for the round.
+  __device__ __forceinline__ const float4* landed(int b, int) const { return rows[b]; }
 };
+
+// K6's stage: kDepth buffers of kRows packed rows (112 B each) that the bulk
+// copies fill, and one buffer of kRows f32 rows that the round being walked
+// is widened into (at 128 rows and depth 2, 51 KB: three CTAs an SM still
+// fit, as K1's).
+template <int kRows, int kDepth>
+struct PackedStage {
+  static constexpr int rows_a_round = kRows;
+  static constexpr int depth = kDepth;
+  static constexpr int words = kRows / 32;
+  static constexpr uint32_t row_bytes = kPackedBytes;
+  uint4 packed[kDepth][kRows * (kPackedBytes / 16)];
+  float4 rows[kRows * kRow4];
+  uint64_t bar[kDepth];
+  int gids[kDepth][kRows];
+  __device__ __forceinline__ void* landing(int b, int t) {
+    return &packed[b][t * (kPackedBytes / 16)];
+  }
+  // Widen the n packed rows of buffer b into the f32 buffer, which every
+  // thread has left at the round's opening barrier (the buffer of round
+  // r - 1); the barrier after it publishes the rows. Packed buffer b is free
+  // again once that barrier has passed. Called as RowStage::landed.
+  __device__ __forceinline__ const float4* landed(int b, int n) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(packed[b]);
+    for (int i = threadIdx.x; i < n * kRow4; i += blockDim.x) {
+      const int r = i / kRow4;
+      rows[i] = widen_packed4(p + r * kPackedWords, i - r * kRow4);
+    }
+    __syncthreads();
+    return rows;
+  }
+};
+
+// The forward walk's stage (blend_subtile_fwd.cuh): 128 rows a round, two
+// buffers, one round in flight while one is walked.
+constexpr int kFwdRows = 128;
+constexpr int kFwdDepth = 2;
 
 // The box of a warp's pixel centres: (x0, y0) and the spans.
 struct WarpBox {
@@ -193,9 +238,11 @@ __device__ __forceinline__ void stage_init(Stage& st) {
   guava_copy::fence_barrier_init();
 }
 
-// Where the row of Gaussian id `gid` comes from: RowPipe's row source.
+// Where the row of Gaussian id `gid` comes from: RowPipe's row source, and
+// FwdStage, the stage its rows land in on the forward walk.
 // PlainRows: the (P, 44) table, for K1 and K3.
 struct PlainRows {
+  using FwdStage = RowStage<kFwdRows, kFwdDepth>;
   const float4* __restrict__ rows;
   __device__ __forceinline__ const float4* row(int gid) const {
     return rows + static_cast<int64_t>(gid) * kRow4;
@@ -207,6 +254,7 @@ struct PlainRows {
 // kernel (guava_renderer_tpu/ops/gsplat.py:1227 _fwd_kernel_vmem) clips it;
 // any other id reads rows. Both tables' rows must start on 16 bytes.
 struct ResidentRows {
+  using FwdStage = RowStage<kFwdRows, kFwdDepth>;
   const float4* __restrict__ rows;
   const float4* __restrict__ ltable;
   int n_rows;
@@ -217,13 +265,25 @@ struct ResidentRows {
   }
 };
 
+// PackedBf16Rows: K6's (P, 56) bf16 table (blend_bf16_rows.cuh), rows of
+// 112 bytes, 16-byte aligned; they land packed and are widened to f32 rows
+// before the cull (PackedStage::landed).
+struct PackedBf16Rows {
+  using FwdStage = PackedStage<kFwdRows, kFwdDepth>;
+  const uint4* __restrict__ rows;
+  __device__ __forceinline__ const uint4* row(int gid) const {
+    return rows + static_cast<int64_t>(gid) * (kPackedBytes / 16);
+  }
+};
+
 // The rounds of a CTA's run order[start : end] through a Stage. Round r is
 // its rows r R .. r R + R - 1 with R = min(rows a round, threads), so a
 // thread issues at most one row's copy a round, and it loads that row's
 // Gaussian id one issue ahead: the id's latency hides behind a round, and
 // the copy's behind the depth - 1 rounds in flight. Round r lives in buffer
 // r % depth, that buffer's (r / depth)-th use. `Src` (PlainRows,
-// ResidentRows) gives the address of a Gaussian's row.
+// ResidentRows, PackedBf16Rows) gives the address of a Gaussian's row, and
+// the Stage where it lands and how many bytes it has.
 template <class Stage, class Src>
 struct RowPipe {
   static constexpr int kDepth = Stage::depth;
@@ -252,10 +312,10 @@ struct RowPipe {
     const int b = next % kDepth;
     const int n = rows_in(next);
     const int t = threadIdx.x;
-    if (t == 0) guava_copy::expect_bytes(&st.bar[b], n * kRowBytes);
+    if (t == 0) guava_copy::expect_bytes(&st.bar[b], n * Stage::row_bytes);
     if (t < n) {
       if (gids) st.gids[b][t] = gid;
-      guava_copy::bulk_copy(&st.rows[b][t * kRow4], src.row(gid), kRowBytes, &st.bar[b]);
+      guava_copy::bulk_copy(st.landing(b, t), src.row(gid), Stage::row_bytes, &st.bar[b]);
     }
     ++next;
     if (t < rows_in(next)) gid = order[start + next * R + t];

@@ -1,10 +1,14 @@
 // The forward walk on sub-tile CTAs, shared by the tile blend K1 (blend.cu,
-// rows from the (P, 44) table: PlainRows) and the resident-table blend K7
+// rows from the (P, 44) table: PlainRows), the resident-table blend K7
 // (blend_resident.cu, rows from the table or the resident table by id:
-// ResidentRows). The two are instantiations of one kernel that differ only
-// in the address a staged row is copied from, so on the same rows they give
-// the same image bit for bit. The walk itself (sub-tiles, staging, the
-// cull) is described in blend_subtile.cuh and blend.cu.
+// ResidentRows) and the bf16-row blend K6 (blend_bf16.cu, 112-byte packed
+// rows: PackedBf16Rows). The three are instantiations of one kernel that
+// differ only in where a staged row is copied from and, for K6, in a
+// widening of the landed round to f32 rows before the cull; so on the same
+// f32 rows they give the same image bit for bit. A row source names the
+// stage its rows land in (Src::FwdStage), and the stage's `landed` gives a
+// landed round's f32 rows. The walk itself (sub-tiles, staging, the cull)
+// is described in blend_subtile.cuh and blend.cu.
 
 #pragma once
 
@@ -16,9 +20,6 @@
 
 namespace guava_blend {
 
-// 128 rows a round, two buffers (45 KB): one round in flight while one is walked
-using FwdStage = RowStage<128, 2>;
-
 // One CTA a sub-tile, one thread a pixel: the tile's rows in order, culled per
 // warp, with the decisions and sums of blend_fwd.cuh:blend_tile.
 template <class Src>
@@ -26,8 +27,9 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
     const Src src, const int* __restrict__ order, const int* __restrict__ ranges,
     const float* __restrict__ bg, float* __restrict__ color, float* __restrict__ invdepth,
     float* __restrict__ final_t, int width, int tile, int grid_x) {
+  using Stage = typename Src::FwdStage;
   extern __shared__ __align__(16) unsigned char smem[];
-  FwdStage& st = *reinterpret_cast<FwdStage*>(smem);
+  Stage& st = *reinterpret_cast<Stage*>(smem);
 
   const SubTile sub = subtile_of(tile, grid_x);
   const float fx = static_cast<float>(sub.px);
@@ -40,8 +42,8 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
   bool done = !sub.active;
   const WarpBox box = warp_box(sub);
 
-  RowPipe<FwdStage, Src> pipe(st, src, order, ranges[sub.tile_id], ranges[sub.tile_id + 1],
-                              false);
+  RowPipe<Stage, Src> pipe(st, src, order, ranges[sub.tile_id], ranges[sub.tile_id + 1],
+                           false);
   if (threadIdx.x == 0) stage_init(st);
   __syncthreads();
   pipe.prologue();
@@ -55,12 +57,12 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
     }
     if (pipe.next < pipe.n_rounds) pipe.issue_next();
     pipe.wait(r);
+    const float4* rows_b = st.landed(r % Stage::depth, pipe.rows_in(r));
     if (__ballot_sync(0xffffffffu, !done) == 0u) continue;   // the whole warp has stopped
-    const float4* rows_b = st.rows[r % FwdStage::depth];
-    uint32_t keep[FwdStage::words];
+    uint32_t keep[Stage::words];
     cull_warp(rows_b, pipe.rows_in(r), box, keep);
     if (done) continue;
-    for (int kw = 0; kw < FwdStage::words && !done; ++kw) {
+    for (int kw = 0; kw < Stage::words && !done; ++kw) {
       uint32_t m = keep[kw];
       while (m != 0u) {
         const int j = kw * 32 + __ffs(m) - 1;
@@ -100,6 +102,10 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
   final_t[pix] = T;
 }
 
+// Dynamic shared memory of a CTA of the walk with row source Src.
+template <class Src>
+constexpr size_t fwd_smem_bytes = sizeof(typename Src::FwdStage);
+
 // Launch the walk over an H x W image tiled by `tile` (H, W multiples of it,
 // tile * tile <= 1024) on `stream`; the launch's cudaError_t.
 template <class Src>
@@ -108,11 +114,12 @@ inline cudaError_t launch_blend_fwd(const Src& src, const int* order, const int*
                                     float* final_t, int height, int width, int tile,
                                     cudaStream_t stream) {
   const int n_ctas = subtile_ctas(height, width, tile);
+  const size_t smem = fwd_smem_bytes<Src>;
   if (n_ctas > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(FwdStage));
+        blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    blend_fwd_kernel<Src><<<n_ctas, subtile_threads(tile), sizeof(FwdStage), stream>>>(
+    blend_fwd_kernel<Src><<<n_ctas, subtile_threads(tile), smem, stream>>>(
         src, order, ranges, bg, color, invdepth, final_t, width, tile, width / tile);
   }
   return cudaGetLastError();
@@ -123,12 +130,12 @@ inline cudaError_t launch_blend_fwd(const Src& src, const int* order, const int*
 // a CTA -> *smem_bytes.
 template <class Src>
 inline int blend_fwd_occupancy(int tile, int* ctas, int* smem_bytes) {
-  *smem_bytes = static_cast<int>(sizeof(FwdStage));
+  *smem_bytes = static_cast<int>(fwd_smem_bytes<Src>);
   const cudaError_t err = cudaFuncSetAttribute(
-      blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(FwdStage));
+      blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem_bytes<Src>);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, blend_fwd_kernel<Src>, subtile_threads(tile), sizeof(FwdStage)));
+      ctas, blend_fwd_kernel<Src>, subtile_threads(tile), fwd_smem_bytes<Src>));
 }
 
 }  // namespace guava_blend

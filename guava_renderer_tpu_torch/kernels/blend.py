@@ -5,12 +5,13 @@ backward is K3; and K1p (`blend_probe`, `csrc/blend_probe.cu`), K1 with a
 count of the rounds each tile ran, for the early-exit probe
 (`tools/ee_probe.py`).
 
-K1, K3 and K7 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8 at
-tile 8), one CTA each, and each warp drops the rows no pixel of its own
+K1, K3, K7 and K6 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8
+at tile 8), one CTA each, and each warp drops the rows no pixel of its own
 8 x 4 block can take (`csrc/blend_subtile.cuh`); `subtile_geometry` and
-`cull_keep_plain` state that cut and that cull in PyTorch ops. K1 and K7
-are one kernel (`csrc/blend_subtile_fwd.cuh`) with two row sources;
-`resident_source_plain` states K7's. K6, K8 and K1p walk whole tiles
+`cull_keep_plain` state that cut and that cull in PyTorch ops. K1, K7 and
+K6 are one kernel (`csrc/blend_subtile_fwd.cuh`) with three row sources;
+`resident_source_plain` states K7's, `unpack_rows_bf16` the f32 rows K6
+widens its packed rows to. K8 and K1p walk whole tiles
 (`csrc/blend_fwd.cuh`). The images are the same bit for bit.
 
 `blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
@@ -566,14 +567,15 @@ def blend_probe(rows, order, ranges, bg, height, width, tile, chunk, exit_every)
 
 
 def occupancy(tile):
-    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}, "K7": {...}}:
-    CTAs of the built K1, K3 and K7 resident on one SM at once at this tile
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the dynamic shared
-    memory each CTA takes."""
+    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}, "K7": {...},
+    "K6": {...}}: CTAs of the built K1, K3, K7 and K6 resident on one SM at
+    once at this tile (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+    the dynamic shared memory each CTA takes."""
     lib = build.library()
     out = {}
     for key, entry in (("K1", "guava_blend_fwd_occupancy"), ("K3", "guava_blend_bwd_occupancy"),
-                       ("K7", "guava_blend_resident_occupancy")):
+                       ("K7", "guava_blend_resident_occupancy"),
+                       ("K6", "guava_blend_bf16_occupancy")):
         n, smem = ctypes.c_int(0), ctypes.c_int(0)
         build.check(getattr(lib, entry)(tile, ctypes.addressof(n), ctypes.addressof(smem)),
                     entry)

@@ -23,7 +23,7 @@ SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "me
            "blend_probe.cu", "dma_bench.cu", "stream_sum.cu", "copy_probe.cu")
 # included by the sources; part of the build's digest
 HEADERS = ("blend_common.cuh", "blend_fwd.cuh", "blend_subtile.cuh", "blend_subtile_fwd.cuh",
-           "async_copy.cuh")
+           "blend_bf16_rows.cuh", "async_copy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,11 +45,12 @@ SIGNATURES = {
     # rows, order, ranges, bg, color, invdepth, final_T, g_color, g_invdepth, d_rows,
     # height, width, tile, stream
     "guava_blend_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # tile, &ctas, &smem_bytes: resident CTAs an SM of K1, K3 and K7, and the
-    # dynamic shared memory of a CTA
+    # tile, &ctas, &smem_bytes: resident CTAs an SM of K1, K3, K7 and K6, and
+    # the dynamic shared memory of a CTA
     "guava_blend_fwd_occupancy": (_I, _P, _P),
     "guava_blend_bwd_occupancy": (_I, _P, _P),
     "guava_blend_resident_occupancy": (_I, _P, _P),
+    "guava_blend_bf16_occupancy": (_I, _P, _P),
     # drows, ids, seg, carry, d_table, n, n_faces, stream
     "guava_face_gather_bwd": (_P, _P, _P, _P, _P, _I, _I, _P),
     # tris, inst_fid, ranges, best, depth, height, width, tile, stream

@@ -13,8 +13,9 @@ memory and writes what landed back out:
 
 For CUDA tensors `copy_probe` launches `csrc/copy_probe.cu`, through the bulk
 copy engine where every source offset and size is a multiple of 16 bytes
-(`route` says which) and by 4-byte cp.async otherwise; for CPU tensors it
-runs `copy_probe_plain`; nothing else.
+(`route` says which) and by 4-byte cp.async otherwise, with the CTAs and
+shared memory of `launch_shape`; for CPU tensors it runs `copy_probe_plain`;
+nothing else.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ SOURCES = {
     "row64": ((300_000, 64), torch.float32),
 }
 LOOP_ROWS = 32     # row1_loop's indices
+MAX_SMEM = 16384   # shared bytes a CTA may take (csrc/copy_probe.cu:kMaxBytes)
 launches = 0       # T1 kernel launches so far in this process
 
 
@@ -66,6 +68,22 @@ def plan(name: str, at) -> Copy:
         "row8": Copy(None, 1, at // 8 * 8, 512, 8 * 512, 0, (1, 128)),
         "row64": Copy(None, 1, at, 256, 256, 0, (1, 64)),
     }[name]
+
+
+class Shape(NamedTuple):
+    """How csrc/copy_probe.cu launches a probe's copy: CTA c lands segment c
+    into smem_bytes of dynamic shared memory and writes the part of the
+    output window that lies in it."""
+    ctas: int
+    smem_bytes: int
+
+
+def launch_shape(name: str, at) -> Shape:
+    """The launch of probe `name` at `at`, as `guava_copy_probe` works it
+    out: a CTA a segment, its shared memory the segment rounded up to 128
+    bytes."""
+    c = plan(name, at)
+    return Shape(c.n_seg, -(-c.seg_bytes // 128) * 128)
 
 
 def route(name: str, at) -> str:

@@ -10,15 +10,19 @@ engine where offsets and sizes are multiples of 16 bytes, else 4-byte
 cp.async. One line a probe:
 
     EXP <name> OK route=<bulk|async4> err=<max abs vs plain> launches=<n> ms=<ms> plain_ms=<ms>
-        library_ms=<ms> bytes=<B> library_bytes=<B>
+        library_ms=<ms> bytes=<B> library_bytes=<B> floor_ms=<ms>
     EXP <name> FAIL <reason>
 
 (on one line; library_ms is one PyTorch call that writes the same values,
 `library_call`, timed in turns with the probe; bytes and library_bytes are
-what each must move, `moved_bytes`).
+what each must move, `moved_bytes`; floor_ms is the launch floor, one
+near-empty kernel, `torch.cuda._sleep(1)`, timed in the same turns, so that
+a time splits into launch and copy).
 
-Each probe runs in a subprocess of its own, all at once, since a copy that
-faults poisons the process's CUDA context. --unaligned moves the index
+Each probe runs in a subprocess of its own, since a copy that faults
+poisons the process's CUDA context, and the subprocesses run one after
+another: a probe timed while other processes hold the card is timed on a
+card that time-slices between their contexts. --unaligned moves the index
 slices' starts off a 16-byte boundary (the async4 route).
 
     python -m guava_renderer_tpu_torch.tools.mosaic_probe [--device cuda] [--exp NAME]
@@ -88,10 +92,16 @@ def moved_bytes(name: str, at) -> tuple[int, int]:
     return c.n_seg * c.seg_bytes + out, 2 * out
 
 
+def launch_floor() -> None:
+    """One near-empty kernel: the device time of a launch that does no work."""
+    torch.cuda._sleep(1)
+
+
 def run_probe(name: str, device, unaligned: bool = False, iters: int = 20) -> dict:
     """One probe in this process: kernel against plain version, and times;
-    the probe and its library call in turns (probe, library, library, probe,
-    twice; medians), so that drift favours neither."""
+    the probe, its library call and the launch floor in turns (probe,
+    library, floor, floor, library, probe, twice; medians), so that drift
+    favours none."""
     src, at = probe_inputs(name, device, unaligned)
     got = copy_probe(name, src, at)
     want = copy_probe_plain(name, src, at)
@@ -102,10 +112,11 @@ def run_probe(name: str, device, unaligned: bool = False, iters: int = 20) -> di
     res = {"name": name, "route": route(name, at), "err": err,
            "equal": bool(torch.equal(got, want))}
     res["bytes"], res["library_bytes"] = moved_bytes(name, at)
-    turns = {"ms": [], "library_ms": []}
+    probe = (("ms", lambda: copy_probe(name, src, at)), ("library_ms", lib),
+             ("floor_ms", launch_floor))
+    turns = {key: [] for key, _ in probe}
     for _ in range(2):
-        for key, fn in (("ms", lambda: copy_probe(name, src, at)), ("library_ms", lib),
-                        ("library_ms", lib), ("ms", lambda: copy_probe(name, src, at))):
+        for key, fn in probe + probe[::-1]:
             turns[key].append(device_ms(fn, device, iters))
     for key, times in turns.items():
         res[key] = None if None in times else statistics.median(times)
@@ -127,13 +138,14 @@ def _child(name: str, device: str, unaligned: bool, iters: int) -> int:
         return 1
     print(f"EXP {name} OK route={r['route']} err={r['err']:g} launches={kcp.launches} "
           f"ms={r['ms']} plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
-          f"bytes={r['bytes']} library_bytes={r['library_bytes']}", flush=True)
+          f"bytes={r['bytes']} library_bytes={r['library_bytes']} floor_ms={r['floor_ms']}",
+          flush=True)
     return 0
 
 
 def parse_line(line: str) -> dict:
     """An `EXP` line -> {name, ok, route, err, launches, ms, plain_ms, library_ms, bytes,
-    library_bytes} (or reason)."""
+    library_bytes, floor_ms} (or reason)."""
     parts = line.split()
     res = {"name": parts[1], "ok": parts[2] == "OK"}
     if not res["ok"]:
@@ -169,13 +181,13 @@ def main(argv=None) -> list[dict]:
         ap.error(f"unknown probes {sorted(unknown)}; choose from {PROBES}")
     flags = ["--device", args.device, "--iters", str(args.iters)] + \
         (["--unaligned"] if args.unaligned else [])
-    # one subprocess a probe, all started together: a faulting copy must not sink the rest
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "guava_renderer_tpu_torch.tools.mosaic_probe", "--child", name,
-         *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in names]
+    # one subprocess a probe, so that a faulting copy cannot sink the rest, one at a time, so
+    # that each is timed alone on the card
     results = []
-    for name, p in zip(names, procs):
+    for name in names:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "guava_renderer_tpu_torch.tools.mosaic_probe", "--child", name,
+             *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
             out, err = p.communicate(timeout=600)
         except subprocess.TimeoutExpired:

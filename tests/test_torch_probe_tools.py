@@ -9,7 +9,8 @@ definition (a sum over rows), in float64 numpy; the payload sorts sorted and
 carrying their payloads. The JAX kernel is defined inside the tool's main()
 and cannot be imported.
 T1 (`kernels/copy_probe.py`): each probe's plain version against what its
-Pallas body writes, stated in numpy (the JAX probes only compile, on a TPU).
+Pallas body writes, stated in numpy (the JAX probes only compile, on a TPU);
+`launch_shape`'s cut of each probe's copy into CTAs, aligned and not.
 """
 
 import importlib.util
@@ -174,6 +175,32 @@ def test_copy_probe_library_call(name, unaligned):
                                want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("name", kcp.PROBES)
+def test_copy_probe_launch_shape(name, unaligned):
+    """launch_shape partitions the probe's copy as csrc/copy_probe.cu cuts it:
+    segment c in CTA c, a CTA's shared memory (whole 128-byte lines, at most
+    16 KB) at least what lands in it, the output window inside what lands,
+    and the CTAs' parts of the window tiling it. row1_loop's rows go to a
+    CTA each."""
+    src, at = mosaic_probe.probe_inputs(name, "cpu", unaligned)
+    c = kcp.plan(name, at)
+    shape = kcp.launch_shape(name, at)
+    assert shape.ctas == c.n_seg == (kcp.LOOP_ROWS if name == "row1_loop" else 1)
+    assert c.seg_bytes <= shape.smem_bytes <= kcp.MAX_SMEM
+    assert shape.smem_bytes % 128 == 0
+    out_bytes = 4 * int(np.prod(c.out_shape))
+    assert 0 <= c.out_off and c.out_off + out_bytes <= c.n_seg * c.seg_bytes
+    parts = []
+    for seg in range(shape.ctas):
+        lo, hi = seg * c.seg_bytes, (seg + 1) * c.seg_bytes
+        a, b = max(c.out_off, lo), min(c.out_off + out_bytes, hi)
+        if b > a:
+            parts.append((a, b))
+    assert parts[0][0] == c.out_off and parts[-1][1] == c.out_off + out_bytes
+    assert all(p[1] == q[0] for p, q in zip(parts, parts[1:]))
+
+
 def test_copy_probe_routes():
     """An index slice starting off a 16-byte boundary takes 4-byte cp.async;
     rows of 256 or 512 bytes take the bulk engine at any index."""
@@ -223,7 +250,7 @@ def test_mosaic_probe_main_on_cpu(capsys):
     assert capsys.readouterr().out.startswith("EXP idx32 OK route=async4 err=0 launches=0")
     assert res == [{"name": "idx32", "ok": True, "route": "async4", "err": 0.0, "launches": 0,
                     "ms": None, "plain_ms": None, "library_ms": None, "bytes": 132,
-                    "library_bytes": 8}]
+                    "library_bytes": 8, "floor_ms": None}]
 
 
 @pytest.mark.parametrize("name", kcp.PROBES)
