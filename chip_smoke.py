@@ -8,11 +8,11 @@ Phases (one line each, then a JSON line of the kernels, then a last line
   2. build the CUDA kernels from `guava_renderer_tpu_torch/csrc`;
   3. each of the five kernels against its plain PyTorch version at the
      shapes of the full-scale bench scene's frame 0, with times (CUDA
-     events, medians); K1's sub-tile walk against the whole-tile walk it
-     replaced (K1p at (256, 1)) bit for bit and in turns, at tile 32 and on
-     a tile-16 binning of the same frame, with the cull's kept rows, the
-     registers and shared memory ptxas gave K1, K3, K7 and K6 and their
-     resident CTAs an SM; K4 bit-equal to a second launch and to its
+     events, medians); K1 also on a tile-16 binning of the same frame
+     against its plain version there, with the cull's kept rows at both
+     tiles; the registers and shared memory ptxas gave K1, K3, K7, K6, K8
+     and K1p's two stages and their resident CTAs an SM; K4 bit-equal to a
+     second launch and to its
      windowed plain model, its windows and the faces that cross them, K4
      and zeros.index_add_ in turns, and K4 at a few small edge cases
      (partial last window, empty segments, Fc = 1, one face on every texel);
@@ -37,10 +37,10 @@ Phases (one line each, then a JSON line of the kernels, then a last line
  11. the raster variants (bf16 rows: K6; size classes with a resident
      table: K7, built by K9; streaming: K8): each kernel against its plain
      version and against K1 at frame 0, the four forward blends in turns
-     (K7 and K6 share K1's kernel), 20 frames through render_frame under each
-     setting, a 64^2 frame GPU vs CPU, the frame's gradient against the
-     default path's, a 32^2 bf16 training step GPU vs CPU and two
-     full-width training steps under each setting;
+     (one kernel with four row sources), 20 frames through
+     render_frame under each setting, a 64^2 frame GPU vs CPU, the frame's
+     gradient against the default path's, a 32^2 bf16 training step GPU vs
+     CPU and two full-width training steps under each setting;
  12. the probe tools at their defaults (K1p in tools/ee_probe.py, T2
      tools/dma_bench.py over every variant, T3 and the payload sorts
      tools/sort_payload_bench.py, the seven T1 copy probes
@@ -48,9 +48,11 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      another, aligned, then off alignment those whose route that changes
      (idx32 and idx1024 to async4), so both routes run), with launch
      counts; then
-     K1p against its plain version at five (chunk, exit_every) and bit-equal
-     to K1, K1 and K1p timed in turns, every T2 variant against its plain
-     version and its staged rows against index_select (T2 timed as the
+     K1p against its plain version at six (chunk, exit_every) and bit-equal
+     to K1, K1 and K1p at (128, 1) and (256, 1) timed in turns, K1p at
+     (128, 1) and (256, 1) on a tile-8 binning (64-thread CTAs, rounds
+     longer than the CTA) against its plain counts and K1's image there,
+     every T2 variant against its plain version and its staged rows against index_select (T2 timed as the
      copies alone and with its in-order sum), T3 against table.sum(0) and
      the float64 sum; each T1 probe in turns with one PyTorch call that
      writes the same values and the launch floor (one near-empty kernel),
@@ -190,7 +192,11 @@ CREATE_LIMIT_MS = 1000.0       # the reference's "sub-second" creation
 # summation orders over 809,984 rows) and against the float64 sum (the kernel's f32 order,
 # run sums of ~6,144 rows then 132 partials, emulated in numpy on such a table: 6.0e-7;
 # a row of the table dropped or added moves a column by up to 2.5e-6)
-K1P_SETTINGS = ((32, 1), (32, 4), (32, 0), (64, 1), (256, 1))
+K1P_SETTINGS = ((32, 1), (32, 4), (32, 0), (64, 1), (128, 1), (256, 1))
+# K1p also at tile 8, whose sub-tile CTAs have 64 threads: there a round of 128 or 256 rows
+# is longer than the CTA, and each thread issues several of its copies
+K1P_WIDE_TILE = 8
+K1P_WIDE_SETTINGS = ((128, 1), (256, 1))
 T2_VARIANTS = "contig:1,rows:1,rows:4,rows_pipe:1,contig_pipe:1,rows_pipe_bf16:1,rows_pipe_2rows:1"
 # T1 off alignment: the probes whose route that changes (idx32 and idx1024 to async4); the
 # others take the bulk route again one element or row away
@@ -619,6 +625,7 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
         say(11, "forward blends at frame 0, in turns (median of 3 rounds of 10 launches): "
                 + ", ".join(f"{k} {v:.4f} ms ({v / blend_ms['K1']:.3f} x K1)"
                             for k, v in blend_ms.items()))
+
         del packed, stream
 
     # 11.2 the main path under each setting: 20 frames through render_frame
@@ -787,8 +794,9 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
         {**entry("K7 tile blend, resident table", "blend_resident.cu", 1227,
                  frame_launches["vmem"]["K7"], err7, k7_ms, k7_plain_ms, k7_bound, k7_by, None),
          **occ["K7"], "over_k1_in_turns": k7_ms / blend_ms["K1"]},
-        entry("K8 tile blend, stream", "blend_stream.cu", 1350, frame_launches["stream"]["K8"],
-              err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
+        {**entry("K8 tile blend, stream", "blend_stream.cu", 1350,
+                 frame_launches["stream"]["K8"], err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
+         **occ["K8"], "over_k1_in_turns": k8_ms / blend_ms["K1"]},
         entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
               k9_plain_ms, k9_bound, "bytes", k9_lib_ms),
     ]
@@ -804,10 +812,12 @@ def t1_bytes(name):
     return copied + written, copied == written
 
 
-def probe_tools(n_instances, visited, contrib):
+def probe_tools(n_instances, visited, contrib, occ, frame_wide):
     """Phase 12 (see the module docstring); (visited, contrib) are the bench
     frame's pairs from phase 3, whose instance count the tools' frame must
-    match. -> the kernels-line entries of K1p, T1, T2 and T3."""
+    match, `occ` the blends' occupancy from phase 3 and `frame_wide` its
+    (rows, order, ranges) binned at K1P_WIDE_TILE. -> the kernels-line
+    entries of K1p, T1, T2 and T3."""
     # 12.1 the main path: the four tools, with every count at 0 just before them
     k1.probe_launches = kt1.launches = kt2.launches = kt3.launches = 0
     t0 = time.perf_counter()
@@ -854,12 +864,15 @@ def probe_tools(n_instances, visited, contrib):
                          f"{int(k1.chunks_run(last, ranges, ch, 0).sum())}")
         if not errp <= K1_TOL:
             raise SystemExit(f"K1p disagrees with its plain version: max abs {errp} > {K1_TOL}")
-        turns = {"K1": [], "K1p": []}
+        # K1 and K1p at (128, 1), K1's stage, and at (256, 1), the 256-row stage, in turns
+        runs = {"K1": lambda: k1.blend(rows, order, ranges, bg, *img),
+                "K1p/128": lambda: k1.blend_probe(rows, order, ranges, bg, *img, 128, 1),
+                "K1p/256": lambda: k1.blend_probe(rows, order, ranges, bg, *img, 256, 1)}
+        turns = {k: [] for k in runs}
         for _ in range(3):
-            turns["K1"].append(cuda_ms(lambda: k1.blend(rows, order, ranges, bg, *img)))
-            turns["K1p"].append(cuda_ms(lambda: k1.blend_probe(rows, order, ranges, bg, *img,
-                                                               256, 1)))
-        k1_ms, kp_ms = (statistics.median(turns[k]) for k in ("K1", "K1p"))
+            for k, fn in runs.items():
+                turns[k].append(cuda_ms(fn))
+        k1_ms, kp_ms, kp256_ms = (statistics.median(turns[k]) for k in runs)
         kp_bound, kp_by, kp_bytes = blend_bound(rows.shape[0] * k1.ROW * 4, order.shape[0],
                                                 visited, contrib)
         n_tiles_exit = int((k1.chunks_run(last, ranges, 32, 1)
@@ -868,9 +881,31 @@ def probe_tools(n_instances, visited, contrib):
                 f"every (chunk, exit_every); rounds run of total: {', '.join(lines)}; tiles that "
                 f"exit early at (32, 1): {n_tiles_exit} of {ranges.numel() - 1}; max abs vs plain "
                 f"{errp:.3g} (tol {K1_TOL}); in turns (median of 3 rounds of 10) K1 {k1_ms:.4f} "
-                f"ms, K1p (256, 1) {kp_ms:.4f} ms ({kp_ms / k1_ms:.3f} x K1); plain {p_ms:.1f} ms "
-                f"(one call), bound {kp_bound:.4f} ms by {kp_by}")
+                f"ms, K1p (128, 1) {kp_ms:.4f} ms ({kp_ms / k1_ms:.3f} x K1), K1p (256, 1) "
+                f"{kp256_ms:.4f} ms ({kp256_ms / k1_ms:.3f} x K1); plain {p_ms:.1f} ms (one "
+                f"call), bound {kp_bound:.4f} ms by {kp_by}")
         del ref1, want_img, got
+
+        # K1p at tile 8, the rounds longer than the CTA: counts and image as at tile 32
+        rows_w, order_w, ranges_w = frame_wide
+        img_w = (SIZE, SIZE, K1P_WIDE_TILE)
+        ref_w = k1.blend(rows_w, order_w, ranges_w, bg, *img_w)
+        *_, last_w = k1.blend_probe_plain(rows_w, order_w, ranges_w, bg, *img_w)
+        for ch, ee_ in K1P_WIDE_SETTINGS:
+            *got, cnt = k1.blend_probe(rows_w, order_w, ranges_w, bg, *img_w, ch, ee_)
+            want_cnt = k1.chunks_run(last_w, ranges_w, ch, ee_)
+            if not torch.equal(cnt, want_cnt):
+                raise SystemExit(f"K1p at tile {K1P_WIDE_TILE} (chunk {ch}, exit_every {ee_}) "
+                                 f"counts differ from its plain version's on "
+                                 f"{int((cnt != want_cnt).sum())} tiles")
+            if not all(torch.equal(g, w) for g, w in zip(got, ref_w)):
+                raise SystemExit(f"K1p at tile {K1P_WIDE_TILE} (chunk {ch}, exit_every {ee_}) "
+                                 f"image differs from K1's")
+        say(12, f"K1p at tile {K1P_WIDE_TILE} ({order_w.numel()} instances, "
+                f"{k1.subtile_geometry(SIZE, SIZE, K1P_WIDE_TILE).threads} threads a CTA) at "
+                f"{', '.join(map(str, K1P_WIDE_SETTINGS))}: counts equal to the plain version's "
+                f"on all {ranges_w.numel() - 1} tiles and the image bit-equal to K1's")
+        del ref_w, last_w, got
 
     # 12.3 T2: every variant against its plain version, its staged rows against index_select
     table, idx2d = dma_bench.build(dma[0]["rows"], dma[0]["p_rows"], DEV)
@@ -967,9 +1002,12 @@ def probe_tools(n_instances, visited, contrib):
 
     main_probes = probes[:len(t1)]
     return [
-        entry("K1p tile blend with round counts (256, 1)", "blend_probe.cu",
+        entry("K1p tile blend with round counts (128, 1)", "blend_probe.cu",
               "guava_renderer_tpu/ops/gsplat.py:1714", "K1p", errp, kp_ms, p_ms, kp_bound, kp_by,
-              None, ee_variants=ee["variants"]),
+              None, over_k1_in_turns=kp_ms / k1_ms, ms_256=kp256_ms,
+              over_k1_in_turns_256=kp256_ms / k1_ms,
+              occupancy={k: occ[k] for k in ("K1p/128", "K1p/256")},
+              ee_variants=ee["variants"]),
         entry("T1 copy probes (sum of the seven)", "copy_probe.cu", "tools/mosaic_probe.py:44",
               "T1", max(p["max_abs_err"] for p in probes),
               sum(p["ms"] for p in main_probes), sum(p["plain_ms"] for p in main_probes),
@@ -1094,6 +1132,7 @@ def main():
         proj = project_gaussians(gs.xyz[0], gs.scaling[0], gs.rotation[0], gs.opacity[0], sc.cam)
         ranges, order = bin_gaussians(proj, SIZE, SIZE, TILE)
         rows = pack_rows(proj, gs.colors[0])
+        frame_wide = (rows, *reversed(bin_gaussians(proj, SIZE, SIZE, K1P_WIDE_TILE)))
         bg = torch.zeros(32, device=DEV)
         got1 = k1.blend(rows, order, ranges, bg, SIZE, SIZE, TILE)
         want1 = k1.blend_plain(rows, order, ranges, bg, SIZE, SIZE, TILE)
@@ -1117,55 +1156,55 @@ def main():
                f"(median of {plain_reps}), bound {k1_bound:.4f} ms by {k1_bound_by} "
                f"({k1_ops / 1e9:.2f} GFLOP, {k1_bytes / 1e6:.1f} MB)")
 
-        # the sub-tile walk against the whole-tile walk it replaced (K1p at (256, 1) runs that
-        # walk), in turns, at tile 32 and on a tile-16 binning of the same frame; the cull's
-        # counts from its plain version, per sub-tile and per warp (the kernels')
+        # K1 at tile 32 and on a tile-16 binning of the same frame, each within K1_TOL of
+        # blend_plain at its tile; the cull's counts from its plain version, per sub-tile and
+        # per warp (the kernels'); the forward blends' and K3's registers and occupancy
         geo = k1.subtile_geometry(SIZE, SIZE, TILE)
         occ = k1.occupancy(TILE)
-        ptxas = {"K1": ptxas_usage("16blend_fwd_kernel", "9PlainRows"),
+        ptxas = {"K1": ptxas_usage("16blend_fwd_kernel", "9PlainRows", "10EveryRound"),
                  "K3": ptxas_usage("16blend_bwd_kernel"),
                  "K7": ptxas_usage("16blend_fwd_kernel", "12ResidentRows"),
-                 "K6": ptxas_usage("16blend_fwd_kernel", "14PackedBf16Rows")}
-        say(3, f"K1/K3/K7/K6 sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of {geo.threads} "
-               f"threads ({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic shared memory "
-               f"a CTA: " + ", ".join(f"{k} {occ[k]['smem_bytes']} B" for k in ptxas)
+                 "K6": ptxas_usage("16blend_fwd_kernel", "14PackedBf16Rows"),
+                 "K8": ptxas_usage("16blend_fwd_kernel", "10StreamRows"),
+                 "K1p/128": ptxas_usage("16blend_fwd_kernel", "9PlainRows", "11ProbeRounds"),
+                 "K1p/256": ptxas_usage("16blend_fwd_kernel", "12PlainRows256")}
+        say(3, f"forward blends and K3 on sub-tile CTAs at tile {TILE}: {geo.n_ctas} CTAs of "
+               f"{geo.threads} threads ({geo.side}^2 pixels, {geo.per_tile} a bin tile); dynamic "
+               f"shared memory a CTA: " + ", ".join(f"{k} {occ[k]['smem_bytes']} B" for k in ptxas)
                + "; resident CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
                + ", ".join(f"{k} {occ[k]['ctas_per_sm']}" for k in ptxas) + "; ptxas: "
                + "; ".join(f"{k} {v}" for k, v in ptxas.items()))
-        walks = {}
+        at_tiles = {}
         for tile_w in (TILE, 16):
             if tile_w == TILE:
-                r_w, o_w, v_w, c_w = ranges, order, visited, contrib
+                r_w, o_w, v_w, c_w, err_w, ms_w = ranges, order, visited, contrib, err1, k1_ms
             else:
                 r_w, o_w = bin_gaussians(proj, SIZE, SIZE, tile_w)
                 v_w, c_w = k1_pairs(rows, o_w, r_w, tile_w)
-            new_img = k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)
-            *old_img, _ = k1.blend_probe(rows, o_w, r_w, bg, SIZE, SIZE, tile_w, 256, 1)
-            if not all(torch.equal(a, b) for a, b in zip(new_img, old_img)):
-                raise SystemExit(f"tile {tile_w}: the sub-tile K1 differs from the whole-tile "
-                                 f"walk (K1p at (256, 1))")
+                got_w = k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)
+                want_w = k1.blend_plain(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)
+                err_w = max(float((g - w).abs().max()) for g, w in zip(got_w, want_w))
+                if not err_w <= K1_TOL:
+                    raise SystemExit(f"tile {tile_w}: K1 disagrees with its plain version: max "
+                                     f"abs {err_w} > {K1_TOL}")
+                del got_w, want_w
+                ms_w = cuda_ms(lambda: k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w))
             keep = k1.cull_keep_plain(rows, o_w, r_w, SIZE, SIZE, tile_w, level="subtile")
             keep_w = k1.cull_keep_plain(rows, o_w, r_w, SIZE, SIZE, tile_w)
-            w_ms = in_turns({"old": lambda: k1.blend_probe(rows, o_w, r_w, bg, SIZE, SIZE, tile_w,
-                                                           256, 1),
-                             "new": lambda: k1.blend(rows, o_w, r_w, bg, SIZE, SIZE, tile_w)})
             w_bound, w_by, _ = blend_bound(P * k1.ROW * 4, o_w.numel(), v_w, c_w, tile_w)
-            walks[tile_w] = {"old_ms": w_ms["old"], "new_ms": w_ms["new"],
-                             "new_over_old": w_ms["new"] / w_ms["old"], "bound_ms": w_bound,
-                             "instances": o_w.numel(), "staged": keep.numel(),
-                             "kept": int(keep.sum()), "warp_pairs": keep_w.numel(),
-                             "warp_pairs_kept": int(keep_w.sum())}
+            at_tiles[tile_w] = {"ms": ms_w, "max_abs_err": err_w, "bound_ms": w_bound,
+                                "instances": o_w.numel(), "staged": keep.numel(),
+                                "kept": int(keep.sum()), "warp_pairs": keep_w.numel(),
+                                "warp_pairs_kept": int(keep_w.sum())}
             say(3, f"K1 at tile {tile_w} ({o_w.numel()} instances, visited pairs {v_w}, "
-                   f"contributing {c_w}): bit-equal to the whole-tile walk; in turns (old, new, "
-                   f"new, old, twice; medians) whole-tile walk {w_ms['old']:.4f} ms, sub-tile K1 "
-                   f"{w_ms['new']:.4f} ms ({w_ms['new'] / w_ms['old']:.3f} x), bound "
-                   f"{w_bound:.4f} ms by {w_by}; cull over the full ranges (before any "
-                   f"sub-tile stops): of {keep.numel()} rows the sub-tiles stage, "
+                   f"contributing {c_w}): max abs vs plain {err_w:.3g} (tol {K1_TOL}); kernel "
+                   f"{ms_w:.4f} ms, bound {w_bound:.4f} ms by {w_by}; cull over the full ranges "
+                   f"(before any sub-tile stops): of {keep.numel()} rows the sub-tiles stage, "
                    f"{int(keep.sum())} reach their sub-tile "
                    f"({int(keep.sum()) / max(keep.numel(), 1):.4f}); of {keep_w.numel()} (row, "
                    f"warp) pairs, the warps walk {int(keep_w.sum())} "
                    f"({int(keep_w.sum()) / max(keep_w.numel(), 1):.4f})")
-            del new_img, old_img, keep, keep_w
+            del keep, keep_w
 
         # K3 (the blend's backward) on the same frame: seeded output gradients at
         # the scale a mean over the image's pixels gives them
@@ -1650,7 +1689,7 @@ def main():
 
     # ---- 12. the probe tools ----
     t12 = time.perf_counter()
-    probe_kernels = probe_tools(N, visited, contrib)
+    probe_kernels = probe_tools(N, visited, contrib, occ, frame_wide)
     say(12, f"phase 12 in {time.perf_counter() - t12:.1f} s")
 
     kernels = [
@@ -1658,8 +1697,7 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1018", "launches": launches["K1"],
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": None, **occ["K1"],
-         "against_whole_tile_walk": walks},
+         "bound_by": k1_bound_by, "library_ms": None, **occ["K1"], "at_tiles": at_tiles},
         {"name": "K2 face gather", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],

@@ -35,18 +35,20 @@
 //     and _cull_qcut, four rows a lane); the survivors' bits form a mask in
 //     registers that the walk iterates, so rows that no pixel of the warp
 //     can take are not walked, and no barrier waits for the cull.
-//  4. The same per-pixel arithmetic as the walk of K8 and K1p
-//     (blend_fwd.cuh): gauss_power, next_t, the thresholds and the explicit
-//     fused multiply-adds, on the same rows in the same order minus rows the
-//     pixel would have skipped. The image is that walk's bit for bit. A
-//     round starts with __syncthreads_count, which frees the other buffer
+//  4. The per-pixel arithmetic of the reference's renderCUDA, written once
+//     for every forward blend: gauss_power, next_t, the thresholds and the
+//     explicit fused multiply-adds (blend_common.cuh), on the rows in order
+//     minus rows the pixel would have skipped; so every row source gives
+//     the same image bit for bit on the same f32 rows, and K3 replays it.
+//     A round starts with __syncthreads_count, which frees the other buffer
 //     and ends the sub-tile once its own pixels are all done.
 // Rows are 44 floats (8 geometry + 32 colors + invdepth + 3 pad), not the
 // TPU's 128-lane row, which existed only for DMA alignment. The image is
-// written directly in (H, W, 32) layout. The kernel is
-// blend_subtile_fwd.cuh:blend_fwd_kernel, instantiated here with PlainRows,
-// in blend_resident.cu (K7) with its resident table's ResidentRows and in
-// blend_bf16.cu (K6) with its packed rows' PackedBf16Rows.
+// written directly in (H, W, 32) layout. Every forward blend is this one
+// kernel, blend_subtile_fwd.cuh:blend_fwd_kernel, with one of four row
+// sources: here PlainRows, in blend_probe.cu (K1p) PlainRows with a count of
+// the rounds, in blend_resident.cu (K7) ResidentRows, in blend_bf16.cu (K6)
+// PackedBf16Rows and in blend_stream.cu (K8) StreamRows.
 
 #include <cuda_runtime.h>
 

@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(kMaxSubThreads, 2) blend_bwd_kernel(
 
   const int warp = tid >> 5;
   RowPipe<BwdStage, PlainRows> pipe(st, PlainRows{rows}, order, ranges[sub.tile_id],
-                                    ranges[sub.tile_id + 1], true);
+                                    ranges[sub.tile_id + 1], kRows, true);
   if (tid == 0) stage_init(st);
   __syncthreads();
   pipe.prologue();

@@ -23,7 +23,6 @@ constexpr int kGeom = 8;                 // x, y, conic a/b/c, alpha, 0, 0
 constexpr int kChannels = 32;
 constexpr int kRow = 44;                 // kGeom + 32 colors + invdepth + 3 pad
 constexpr int kRow4 = kRow / 4;          // 11 float4 a row
-constexpr int kBatch = 256;              // rows a round: 45,056 B of shared memory
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTMin = 1e-4f;
@@ -43,19 +42,6 @@ __device__ __forceinline__ float gauss_power(const float* __restrict__ s, float 
 // Transmittance after a contribution of opacity alpha.
 __device__ __forceinline__ float next_t(float T, float alpha) {
   return __fmul_rn(T, __fsub_rn(1.0f, alpha));
-}
-
-// Stage rows order[base : base + n] of the (P, 44) table into shared memory
-// (16-byte loads); with gids, also their Gaussian ids.
-__device__ __forceinline__ void stage_rows(float4* stage, int* gids,
-                                           const float4* __restrict__ rows,
-                                           const int* __restrict__ order, int base, int n) {
-  for (int i = threadIdx.x; i < n * kRow4; i += blockDim.x) {
-    const int r = i / kRow4;
-    const int gid = order[base + r];
-    stage[i] = rows[static_cast<long long>(gid) * kRow4 + (i - r * kRow4)];
-    if (gids != nullptr && i == r * kRow4) gids[r] = gid;
-  }
 }
 
 }  // namespace guava_blend

@@ -1,9 +1,9 @@
 // Forward tile blend reading a per-instance stream (the rasterizer's
-// streaming setting).
+// streaming setting), K8.
 //
-// Replaces guava_renderer_tpu/ops/gsplat.py:_fwd_stream_kernel (reached
-// through blend_tiles_stream). The stream holds one (44,) f32 row per
-// (Gaussian, tile) instance in the sorted order, so tile t's rows are
+// Replaces guava_renderer_tpu/ops/gsplat.py:1350 _fwd_stream_kernel
+// (reached through blend_tiles_stream). The stream holds one (44,) f32 row
+// per (Gaussian, tile) instance in the sorted order, so tile t's rows are
 // stream[ranges[t] : ranges[t + 1]], contiguous: the blend reads no `order`
 // and gathers nothing. Geometry is exact f32; colors and the inverse depth
 // are bf16-rounded, the values the JAX package carries through its sort.
@@ -13,50 +13,34 @@
 // gathered ~3 times over) into contiguous reads of N rows (~94 MB), and
 // the blend's time is its arithmetic either way.
 //
-// Design: the whole-tile walk (blend_fwd.cuh) with a staging of contiguous,
-// coalesced 16-byte loads: stage[i] = stream4[base * 11 + i]. Copying
-// with cp.async or TMA bulk copies, and overlapping a round's copy with
-// the walk of the last, is later work.
+// Design: K1's kernel (blend_subtile_fwd.cuh: sub-tile CTAs, rows staged
+// two rounds deep by bulk copies, the per-warp exact cull) with the row
+// source StreamRows: instance i's row is stream row i, so the pipe takes
+// the instance index as the row id and loads no `order`, and a round's
+// rows, being contiguous, land by one bulk copy of n x 176 bytes from
+// thread 0, where K1 issues a 176-byte copy a row from n threads. On the
+// rows with bf16-rounded colors the image is K1's bit for bit, and K3
+// replays it from the f32 rows and `order`.
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include "blend_subtile_fwd.cuh"
 
-#include "blend_fwd.cuh"
+using guava_blend::StreamRows;
 
-namespace {
-
-using namespace guava_blend;
-
-// A round's rows: stream rows base .. base + n - 1, contiguous.
-struct ReadStream {
-  const float4* stream;
-  __device__ void operator()(float4* stage, int base, int n) const {
-    const float4* src = stream + static_cast<int64_t>(base) * kRow4;
-    for (int i = threadIdx.x; i < n * kRow4; i += blockDim.x) stage[i] = src[i];
-  }
-};
-
-__global__ void __launch_bounds__(1024) blend_stream_kernel(
-    const float4* __restrict__ stream, const int* __restrict__ ranges,
-    const float* __restrict__ bg, float* __restrict__ color, float* __restrict__ invdepth,
-    float* __restrict__ final_t, int width, int tile, int grid_x) {
-  blend_tile(ReadStream{stream}, ranges, bg, color, invdepth, final_t, width, tile, grid_x);
-}
-
-}  // namespace
-
-// stream (N, 44) f32, ranges (gy*gx + 1,) i32 indexing it, bg (32,) f32
-// -> color (H, W, 32), invdepth (H, W), final_t (H, W) f32.
-// H and W are multiples of tile, and tile * tile <= 1024.
+// stream (N, 44) f32 (16-byte aligned), ranges (gy*gx + 1,) i32 indexing
+// it, bg (32,) f32 -> color (H, W, 32), invdepth (H, W), final_t (H, W)
+// f32. H and W are multiples of tile, and tile * tile <= 1024.
 extern "C" int guava_blend_stream_fwd(const float* stream, const int* ranges, const float* bg,
                                       float* color, float* invdepth, float* final_t,
                                       int height, int width, int tile, void* stream_) {
-  const int n_tiles = blend_tiles_of(height, width, tile);
-  if (n_tiles > 0) {
-    blend_stream_kernel<<<n_tiles, tile * tile, 0, static_cast<cudaStream_t>(stream_)>>>(
-        reinterpret_cast<const float4*>(stream), ranges, bg, color, invdepth, final_t, width,
-        tile, width / tile);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(guava_blend::launch_blend_fwd(
+      StreamRows{reinterpret_cast<const float4*>(stream)}, nullptr, ranges, bg, color, invdepth,
+      final_t, height, width, tile, static_cast<cudaStream_t>(stream_)));
+}
+
+// CTAs of K8 resident on one SM at once for a tile -> *ctas; its dynamic
+// shared memory a CTA -> *smem_bytes.
+extern "C" int guava_blend_stream_occupancy(int tile, int* ctas, int* smem_bytes) {
+  return guava_blend::blend_fwd_occupancy<StreamRows>(tile, ctas, smem_bytes);
 }

@@ -1,10 +1,13 @@
-// The sub-tile walk shared by the forward tile blend K1 (blend.cu), the
-// resident-table blend K7 (blend_resident.cu), the bf16-row blend K6
-// (blend_bf16.cu; the three through blend_subtile_fwd.cuh) and the backward
-// K3 (blend_bwd.cu): how a bin tile is cut into sub-tiles, one CTA each; how
-// a round's rows are staged, two buffers deep, by the bulk copy engine,
-// from the address a row source gives; and the exact row cull that drops
-// the rows no pixel of a warp can take.
+// The sub-tile walk shared by every forward blend and the backward K3
+// (blend_bwd.cu). The forward blends are one kernel (blend_subtile_fwd.cuh)
+// with four row sources: the tile blend K1 (blend.cu) and the probe K1p
+// (blend_probe.cu) read the (P, 44) table, the resident-table blend K7
+// (blend_resident.cu) that table or its resident table, the bf16-row blend
+// K6 (blend_bf16.cu) packed rows, and the stream blend K8 (blend_stream.cu)
+// a per-instance stream. This file holds how a bin tile is cut into
+// sub-tiles, one CTA each; how a round's rows are staged, two buffers deep,
+// by the bulk copy engine, from the address a row source gives; and the
+// exact row cull that drops the rows no pixel of a warp can take.
 //
 // Sub-tiles. A bin tile (its instances order[ranges[t] : ranges[t + 1]])
 // is walked by (tile / sub)^2 CTAs of sub^2 pixels, one thread a pixel,
@@ -18,11 +21,13 @@
 // row-major, and the threads past sub^2 (the CTA is a whole number of
 // warps) hold no pixel.
 //
-// Staging. A round is up to a Stage's rows_a_round rows (K1 128, K3 64).
-// Each row is one bulk copy of the Stage's row_bytes (176; K6's packed rows
-// 112), issued by one thread, that completes on its buffer's mbarrier; the
-// barrier expects the round's bytes. With a Stage of depth buffers, round
-// r + depth - 1 is issued as round r starts, so the copies land while
+// Staging. A round is up to a Stage's rows_a_round rows (K1 128, K3 64;
+// K1p its `chunk`, up to 256). Each row is one bulk copy of the Stage's
+// row_bytes (176; K6's packed rows 112), issued by one thread, that
+// completes on its buffer's mbarrier; the barrier expects the round's
+// bytes. Instance i of a run has the row id row_id(src, order, i): order[i]
+// for the table sources, i for the stream. With a Stage of depth buffers,
+// round r + depth - 1 is issued as round r starts, so the copies land while
 // earlier rounds are culled and walked (RowPipe).
 //
 // The cull. Once a round has landed, each warp tests the round's rows (one
@@ -55,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "blend_bf16_rows.cuh"
@@ -238,9 +244,11 @@ __device__ __forceinline__ void stage_init(Stage& st) {
   guava_copy::fence_barrier_init();
 }
 
-// Where the row of Gaussian id `gid` comes from: RowPipe's row source, and
-// FwdStage, the stage its rows land in on the forward walk.
-// PlainRows: the (P, 44) table, for K1 and K3.
+// Where the row of id `gid` comes from: RowPipe's row source, and
+// FwdStage, the stage its rows land in on the forward walk. Instance i of
+// a run has the row id row_id(src, order, i) (below): order[i] for the
+// table sources, i for the stream.
+// PlainRows: the (P, 44) table, for K1, K1p and K3.
 struct PlainRows {
   using FwdStage = RowStage<kFwdRows, kFwdDepth>;
   const float4* __restrict__ rows;
@@ -276,15 +284,53 @@ struct PackedBf16Rows {
   }
 };
 
-// The rounds of a CTA's run order[start : end] through a Stage. Round r is
-// its rows r R .. r R + R - 1 with R = min(rows a round, threads), so a
-// thread issues at most one row's copy a round, and it loads that row's
-// Gaussian id one issue ahead: the id's latency hides behind a round, and
-// the copy's behind the depth - 1 rounds in flight. Round r lives in buffer
-// r % depth, that buffer's (r / depth)-th use. `Src` (PlainRows,
-// ResidentRows, PackedBf16Rows) gives the address of a Gaussian's row, and
-// the Stage where it lands and how many bytes it has.
-template <class Stage, class Src>
+// StreamRows: K8's (N, 44) f32 stream, one row an instance in the sorted
+// order, so instance i's row is stream row i: no `order` is read, and a
+// round's rows are one contiguous run of n x 176 bytes, which one bulk
+// copy from thread 0 brings (RowPipe::issue_next).
+struct StreamRows {
+  using FwdStage = RowStage<kFwdRows, kFwdDepth>;
+  static constexpr bool contiguous = true;
+  const float4* __restrict__ stream;
+  __device__ __forceinline__ const float4* row(int i) const {
+    return stream + static_cast<int64_t>(i) * kRow4;
+  }
+};
+
+// Whether a source's rows for consecutive instances are consecutive in
+// memory (Src::contiguous; false where a source does not say).
+template <class Src, class = void>
+struct contiguous_rows : std::false_type {};
+template <class Src>
+struct contiguous_rows<Src, std::void_t<decltype(Src::contiguous)>>
+    : std::bool_constant<Src::contiguous> {};
+
+// The row id of instance i of a run: i itself where the source's rows are
+// contiguous (the stream), else order[i]. The index keeps the caller's type
+// (unsigned for a thread's first row), so the load is the one order[i]
+// would compile to.
+template <class Src, class Index>
+__device__ __forceinline__ int row_id(const Src&, const int* __restrict__ order, Index i) {
+  if constexpr (contiguous_rows<Src>::value) {
+    return static_cast<int>(i);
+  } else {
+    return order[i];
+  }
+}
+
+// The rounds of a CTA's run, instances start .. end - 1, through a Stage.
+// Round r is its instances r R .. r R + R - 1, R = min(rows, threads) as a
+// rule, so a thread issues at most one row's copy a round, and it loads
+// that row's id one issue ahead: the id's latency hides behind a round, and
+// the copy's behind the depth - 1 rounds in flight (where the source's rows
+// are contiguous, as the stream's, the round is one copy from thread 0).
+// With kWide (K1p, whose round is its `chunk` whatever the threads) R = rows
+// and a thread issues rows t, t + threads, ..., the ids past the first
+// loaded as it issues.
+// Round r lives in buffer r % depth, that buffer's (r / depth)-th use.
+// `Src` gives each instance's row id and address, the Stage where the row
+// lands and how many bytes it has.
+template <class Stage, class Src, bool kWide = false>
 struct RowPipe {
   static constexpr int kDepth = Stage::depth;
   Stage& st;
@@ -293,15 +339,15 @@ struct RowPipe {
   int start, end, R, n_rounds;
   int next;     // the next round to issue
   int gid;      // the id of this thread's row in round `next`
-  bool gids;    // record the ids (the backward's flush reads them)
+  bool gids;    // record the ids (the backward's flush reads them; not with kWide)
 
   __device__ RowPipe(Stage& st_, const Src& src_, const int* order_, int start_, int end_,
-                     bool gids_)
+                     int rows, bool gids_)
       : st(st_), src(src_), order(order_), start(start_), end(end_), next(0), gid(0),
         gids(gids_) {
-    R = min(Stage::rows_a_round, static_cast<int>(blockDim.x));
+    R = kWide ? rows : min(rows, static_cast<int>(blockDim.x));
     n_rounds = (end - start + R - 1) / R;
-    if (static_cast<int>(threadIdx.x) < rows_in(0)) gid = order[start + threadIdx.x];
+    if (static_cast<int>(threadIdx.x) < rows_in(0)) gid = row_id(src, order, start + threadIdx.x);
   }
 
   __device__ int rows_in(int r) const { return max(0, min(R, end - start - r * R)); }
@@ -312,13 +358,29 @@ struct RowPipe {
     const int b = next % kDepth;
     const int n = rows_in(next);
     const int t = threadIdx.x;
+    if constexpr (contiguous_rows<Src>::value) {
+      // the round's rows are contiguous: one copy of n rows
+      if (t == 0) {
+        guava_copy::expect_bytes(&st.bar[b], n * Stage::row_bytes);
+        guava_copy::bulk_copy(st.landing(b, 0), src.row(start + next * R), n * Stage::row_bytes,
+                              &st.bar[b]);
+      }
+      ++next;
+      return;
+    }
     if (t == 0) guava_copy::expect_bytes(&st.bar[b], n * Stage::row_bytes);
     if (t < n) {
       if (gids) st.gids[b][t] = gid;
       guava_copy::bulk_copy(st.landing(b, t), src.row(gid), Stage::row_bytes, &st.bar[b]);
     }
+    if constexpr (kWide) {
+      for (int u = t + blockDim.x; u < n; u += blockDim.x) {
+        guava_copy::bulk_copy(st.landing(b, u), src.row(row_id(src, order, start + next * R + u)),
+                              Stage::row_bytes, &st.bar[b]);
+      }
+    }
     ++next;
-    if (t < rows_in(next)) gid = order[start + next * R + t];
+    if (t < rows_in(next)) gid = row_id(src, order, start + next * R + t);
   }
 
   // The first depth - 1 rounds, before the walk starts.

@@ -1,14 +1,25 @@
-// The forward walk on sub-tile CTAs, shared by the tile blend K1 (blend.cu,
-// rows from the (P, 44) table: PlainRows), the resident-table blend K7
-// (blend_resident.cu, rows from the table or the resident table by id:
-// ResidentRows) and the bf16-row blend K6 (blend_bf16.cu, 112-byte packed
-// rows: PackedBf16Rows). The three are instantiations of one kernel that
-// differ only in where a staged row is copied from and, for K6, in a
-// widening of the landed round to f32 rows before the cull; so on the same
-// f32 rows they give the same image bit for bit. A row source names the
-// stage its rows land in (Src::FwdStage), and the stage's `landed` gives a
-// landed round's f32 rows. The walk itself (sub-tiles, staging, the cull)
-// is described in blend_subtile.cuh and blend.cu.
+// Every forward blend: one kernel on sub-tile CTAs with four row sources
+// (blend_subtile.cuh). The tile blend K1 (blend.cu) and the probe K1p
+// (blend_probe.cu) read the (P, 44) table (PlainRows), the resident-table
+// blend K7 (blend_resident.cu) that table or its resident table by id
+// (ResidentRows), the bf16-row blend K6 (blend_bf16.cu) 112-byte packed
+// rows (PackedBf16Rows), and the stream blend K8 (blend_stream.cu) the
+// per-instance stream, instance i at row i (StreamRows). They differ only
+// in where a staged row is copied from and, for K6, in a widening of the
+// landed round to f32 rows before the cull; so on the same f32 rows they
+// give the same image bit for bit, and K3 (blend_bwd.cu) replays any of
+// them. A row source names the stage its rows land in (Src::FwdStage), and
+// the stage's `landed` gives a landed round's f32 rows. The walk itself
+// (sub-tiles, staging, the cull) is described in blend_subtile.cuh and
+// blend.cu.
+//
+// `Rounds` sets the rounds: how many rows each stages, before which rounds
+// the sub-tile tests whether all its pixels are done (the other rounds open
+// with a plain barrier, which frees the other buffer all the same), and what
+// it does with the rounds it ran. K1, K6, K7 and K8 take EveryRound (the
+// stage's rows, the test before every round, no count); K1p takes its
+// probe's rounds (blend_probe.cu). A pixel's decisions do not depend on the
+// rounds, so every Rounds gives the same image.
 
 #pragma once
 
@@ -20,13 +31,22 @@
 
 namespace guava_blend {
 
+// The rounds of K1, K6, K7 and K8: the stage's rows, the exit test before
+// every round, no count.
+struct EveryRound {
+  static constexpr bool wide = false;   // R = min(rows, threads) (RowPipe)
+  __device__ int rows(int max_rows) const { return max_rows; }
+  __device__ bool exit_test_before(int) const { return true; }
+  __device__ void ran(int, int) const {}
+};
+
 // One CTA a sub-tile, one thread a pixel: the tile's rows in order, culled per
-// warp, with the decisions and sums of blend_fwd.cuh:blend_tile.
-template <class Src>
+// warp, each pixel taking the decisions and sums that blend_bwd.cu replays.
+template <class Src, class Rounds = EveryRound>
 __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
     const Src src, const int* __restrict__ order, const int* __restrict__ ranges,
     const float* __restrict__ bg, float* __restrict__ color, float* __restrict__ invdepth,
-    float* __restrict__ final_t, int width, int tile, int grid_x) {
+    float* __restrict__ final_t, int width, int tile, int grid_x, const Rounds rounds) {
   using Stage = typename Src::FwdStage;
   extern __shared__ __align__(16) unsigned char smem[];
   Stage& st = *reinterpret_cast<Stage*>(smem);
@@ -42,18 +62,25 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
   bool done = !sub.active;
   const WarpBox box = warp_box(sub);
 
-  RowPipe<Stage, Src> pipe(st, src, order, ranges[sub.tile_id], ranges[sub.tile_id + 1],
-                           false);
+  RowPipe<Stage, Src, Rounds::wide> pipe(st, src, order, ranges[sub.tile_id],
+                                         ranges[sub.tile_id + 1],
+                                         rounds.rows(Stage::rows_a_round), false);
   if (threadIdx.x == 0) stage_init(st);
   __syncthreads();
   pipe.prologue();
 
-  for (int r = 0; r < pipe.n_rounds; ++r) {
-    // Frees the buffer of round r - 1 and ends the sub-tile once every pixel
-    // is done; the copies in flight must land before the CTA may leave.
-    if (__syncthreads_count(!done) == 0) {
-      pipe.drain(r);
-      break;
+  int r = 0;
+  for (; r < pipe.n_rounds; ++r) {
+    // Frees the buffer of round r - 1 and, before the rounds that test it,
+    // ends the sub-tile once every pixel is done; the copies in flight must
+    // land before the CTA may leave.
+    if (rounds.exit_test_before(r)) {
+      if (__syncthreads_count(!done) == 0) {
+        pipe.drain(r);
+        break;
+      }
+    } else {
+      __syncthreads();
     }
     if (pipe.next < pipe.n_rounds) pipe.issue_next();
     pipe.wait(r);
@@ -68,8 +95,7 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
         const int j = kw * 32 + __ffs(m) - 1;
         m &= m - 1u;
         const float* s = reinterpret_cast<const float*>(rows_b + j * kRow4);
-        // the decisions of blend_fwd.cuh:blend_tile, which blend_bwd.cu replays: keep them as
-        // they are
+        // the decisions that blend_bwd.cu replays: keep them as they are
         float d0, d1;
         const float power = gauss_power(s, fx, fy, d0, d1);
         if (power > 0.0f) continue;
@@ -88,6 +114,7 @@ __global__ void __launch_bounds__(kMaxSubThreads, 3) blend_fwd_kernel(
       }
     }
   }
+  rounds.ran(sub.tile_id, r);
 
   if (!sub.active) return;
   const int64_t pix = static_cast<int64_t>(sub.py) * width + sub.px;
@@ -108,19 +135,19 @@ constexpr size_t fwd_smem_bytes = sizeof(typename Src::FwdStage);
 
 // Launch the walk over an H x W image tiled by `tile` (H, W multiples of it,
 // tile * tile <= 1024) on `stream`; the launch's cudaError_t.
-template <class Src>
+template <class Src, class Rounds = EveryRound>
 inline cudaError_t launch_blend_fwd(const Src& src, const int* order, const int* ranges,
                                     const float* bg, float* color, float* invdepth,
                                     float* final_t, int height, int width, int tile,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream, const Rounds& rounds = Rounds{}) {
   const int n_ctas = subtile_ctas(height, width, tile);
   const size_t smem = fwd_smem_bytes<Src>;
   if (n_ctas > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        blend_fwd_kernel<Src, Rounds>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    blend_fwd_kernel<Src><<<n_ctas, subtile_threads(tile), smem, stream>>>(
-        src, order, ranges, bg, color, invdepth, final_t, width, tile, width / tile);
+    blend_fwd_kernel<Src, Rounds><<<n_ctas, subtile_threads(tile), smem, stream>>>(
+        src, order, ranges, bg, color, invdepth, final_t, width, tile, width / tile, rounds);
   }
   return cudaGetLastError();
 }
@@ -128,14 +155,15 @@ inline cudaError_t launch_blend_fwd(const Src& src, const int* order, const int*
 // CTAs of the walk resident on one SM at once for a tile (from the compiled
 // kernel's registers and shared memory) -> *ctas; its dynamic shared memory
 // a CTA -> *smem_bytes.
-template <class Src>
+template <class Src, class Rounds = EveryRound>
 inline int blend_fwd_occupancy(int tile, int* ctas, int* smem_bytes) {
   *smem_bytes = static_cast<int>(fwd_smem_bytes<Src>);
-  const cudaError_t err = cudaFuncSetAttribute(
-      blend_fwd_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem_bytes<Src>);
+  const cudaError_t err = cudaFuncSetAttribute(blend_fwd_kernel<Src, Rounds>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               fwd_smem_bytes<Src>);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, blend_fwd_kernel<Src>, subtile_threads(tile), fwd_smem_bytes<Src>));
+      ctas, blend_fwd_kernel<Src, Rounds>, subtile_threads(tile), fwd_smem_bytes<Src>));
 }
 
 }  // namespace guava_blend

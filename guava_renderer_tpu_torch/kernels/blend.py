@@ -5,14 +5,15 @@ backward is K3; and K1p (`blend_probe`, `csrc/blend_probe.cu`), K1 with a
 count of the rounds each tile ran, for the early-exit probe
 (`tools/ee_probe.py`).
 
-K1, K3, K7 and K6 walk each bin tile as sub-tiles of 16 x 16 pixels (8 x 8
-at tile 8), one CTA each, and each warp drops the rows no pixel of its own
+Every blend walks each bin tile as sub-tiles of 16 x 16 pixels (8 x 8 at
+tile 8), one CTA each, and each warp drops the rows no pixel of its own
 8 x 4 block can take (`csrc/blend_subtile.cuh`); `subtile_geometry` and
-`cull_keep_plain` state that cut and that cull in PyTorch ops. K1, K7 and
-K6 are one kernel (`csrc/blend_subtile_fwd.cuh`) with three row sources;
-`resident_source_plain` states K7's, `unpack_rows_bf16` the f32 rows K6
-widens its packed rows to. K8 and K1p walk whole tiles
-(`csrc/blend_fwd.cuh`). The images are the same bit for bit.
+`cull_keep_plain` state that cut and that cull in PyTorch ops. The forward
+blends are one kernel (`csrc/blend_subtile_fwd.cuh`) with four row sources:
+the table (K1, and K1p with its rounds), the table or the resident table by
+id (K7; `resident_source_plain`), packed rows widened to f32 (K6;
+`unpack_rows_bf16`) and the stream, instance i at row i (K8). On the same
+f32 rows their images are the same bit for bit.
 
 `blend`, `blend_bf16`, `blend_resident` and `blend_stream` are
 differentiable in `rows` and `bg`. For CUDA tensors their forwards launch
@@ -50,7 +51,7 @@ bf16_launches = 0       # K6
 resident_launches = 0   # K7
 stream_launches = 0     # K8
 probe_launches = 0      # K1p
-MAX_PROBE_CHUNK = 256   # at most the whole-tile walk's round (csrc/blend_common.cuh:kBatch)
+MAX_PROBE_CHUNK = 256   # K1p's largest stage (csrc/blend_probe.cu)
 # the cull's room for float32 rounding, a share of the largest quadratic term
 # over the box (csrc/blend_subtile.cuh:kCullSlack)
 CULL_SLACK = 2.0 ** -18
@@ -210,7 +211,7 @@ def blend_plain(rows, order, ranges, bg, height, width, tile):
     are visited in descending instance count, which makes the tiles still
     running at step i a prefix of that order.
     """
-    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=False)
+    return _walk_plain(rows, order, ranges, bg, height, width, tile)
 
 
 def blend_culled_plain(rows, order, ranges, bg, height, width, tile):
@@ -218,38 +219,64 @@ def blend_culled_plain(rows, order, ranges, bg, height, width, tile):
     every pixel skipping the rows its warp's cull drops (`cull_keep_plain`).
     Equal to `blend_plain` bit for bit wherever the cull drops only rows
     the pixels would have skipped."""
-    keep = cull_keep_plain(rows, order, ranges, height, width, tile)
-    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=False,
-                       keep=(keep, cull_boxes(tile)[4]))
+    return _walk_plain(rows, order, ranges, bg, height, width, tile,
+                       keep=_warp_keep(rows, order, ranges, height, width, tile))
 
 
-def blend_probe_plain(rows, order, ranges, bg, height, width, tile):
-    """`blend_plain`'s (color, invdepth, final_t) and last_death (gy, gx)
-    int32: per tile, the instance (0 = the tile's first) at which its last
-    pixel finished, i.e. hit T * (1 - alpha) < 1e-4 on a contributing
-    instance, or -1 where some pixel never finishes. `chunks_run` turns it
-    into K1p's count for any (chunk, exit_every)."""
-    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=True)
+def blend_probe_plain(rows, order, ranges, bg, height, width, tile, level="tile",
+                      culled=False):
+    """`blend_plain`'s (color, invdepth, final_t) and last_death int32: the
+    instance (0 = the tile's first) at which the last pixel of a tile
+    (level "tile": (gy, gx)) or of each of its sub-tiles (level "subtile":
+    (gy, gx, sub-tiles a tile), sub-tile s at column s % (tile / side), row
+    s // (tile / side), as K1p's CTAs take them) finished, i.e. hit
+    T * (1 - alpha) < 1e-4 on a contributing instance; -1 where some pixel
+    never finishes. With culled, each pixel skips the rows its warp's cull
+    drops, as the kernel walks. `chunks_run` turns a last death into K1p's
+    count for any (chunk, exit_every); the tile's count is the largest of
+    its sub-tiles' (csrc/blend_probe.cu)."""
+    if level not in ("tile", "subtile"):
+        raise ValueError(f"level must be 'tile' or 'subtile', got {level!r}")
+    keep = _warp_keep(rows, order, ranges, height, width, tile) if culled else None
+    return _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=level, keep=keep)
 
 
 def chunks_run(last_death, ranges, chunk, exit_every):
-    """(gy, gx) int32 rounds a tile of K1p (and of the JAX blend_probe) runs:
-    ceil(n / chunk) where exit_every is 0 or some pixel never finishes,
-    else min(ceil(n / chunk), exit_every * ceil((c + 1) / exit_every)) with
-    c = last_death // chunk, the round in which the last pixel finished."""
-    n = (ranges[1:] - ranges[:-1]).long().reshape(last_death.shape)
+    """int32 rounds a tile (gy, gx) or a sub-tile (gy, gx, s) of K1p (and a
+    tile of the JAX blend_probe) runs, from `blend_probe_plain`'s last
+    death: ceil(n / chunk) where exit_every is 0 or some pixel never
+    finishes, else min(ceil(n / chunk), exit_every * ceil((c + 1) /
+    exit_every)) with c = last_death // chunk, the round in which the last
+    pixel finished."""
+    gy, gx = last_death.shape[:2]
+    n = (ranges[1:] - ranges[:-1]).long().reshape(gy, gx, *(1,) * (last_death.dim() - 2))
     total = (n + chunk - 1) // chunk
     if exit_every == 0:
-        return total.to(torch.int32)
+        return total.expand(last_death.shape).to(torch.int32)
     last = last_death.long()
     stop = (last // chunk + exit_every) // exit_every * exit_every
     return torch.where(last >= 0, torch.minimum(total, stop), total).to(torch.int32)
 
 
-def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths, keep=None):
-    """`blend_plain`, and with deaths=True also `blend_probe_plain`'s
-    last_death; with keep = (mask (N, B), box_of (tile * tile,)), a pixel
-    skips the instances its box does not keep."""
+def probe_stage_rows(chunk):
+    """Rows a round of the stage K1p runs `chunk` rows a round in: K1's
+    stage (128) up to 128, the 256-row stage past it (csrc/blend_probe.cu)."""
+    if not 1 <= chunk <= MAX_PROBE_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_PROBE_CHUNK}], got {chunk}")
+    return 128 if chunk <= 128 else 256
+
+
+def _warp_keep(rows, order, ranges, height, width, tile):
+    """The kernels' per-warp keep masks and each pixel's box, as
+    `_walk_plain` takes them."""
+    return cull_keep_plain(rows, order, ranges, height, width, tile), cull_boxes(tile)[4]
+
+
+def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths=None, keep=None):
+    """`blend_plain`, and with deaths "tile" or "subtile" also
+    `blend_probe_plain`'s last_death at that level; with keep = (mask
+    (N, B), box_of (tile * tile,)), a pixel skips the instances its box does
+    not keep."""
     device = rows.device
     gx = width // tile
     n_tiles = gx * (height // tile)
@@ -301,8 +328,16 @@ def _walk_plain(rows, order, ranges, bg, height, width, tile, deaths, keep=None)
     color = out[..., :CHANNELS] + T_img[..., None] * bg
     if not deaths:
         return color, out[..., CHANNELS:], T_img
-    last = torch.where((death >= 0).all(1), death.max(1).values, -1)
-    return color, out[..., CHANNELS:], T_img, last[inv].reshape(gy, gx).to(torch.int32)
+    if deaths == "subtile":   # (n_tiles, spt, side^2): each sub-tile's pixels
+        side = subtile_side(tile)
+        lin = torch.arange(pix, device=device)
+        sub = (lin // tile // side) * (tile // side) + lin % tile // side
+        death = death[:, torch.argsort(sub, stable=True)].reshape(n_tiles, -1, side * side)
+    else:
+        death = death[:, None, :]
+    last = torch.where((death >= 0).all(-1), death.max(-1).values, -1)[inv]
+    last = last.reshape(gy, gx, -1) if deaths == "subtile" else last.reshape(gy, gx)
+    return color, out[..., CHANNELS:], T_img, last.to(torch.int32)
 
 
 def blend_bwd_plain(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth,
@@ -558,27 +593,33 @@ def blend_probe(rows, order, ranges, bg, height, width, tile, chunk, exit_every)
     if rows.device.type == "cpu":
         *out, last = blend_probe_plain(rows, order, ranges, bg, height, width, tile)
         return (*out, chunks_run(last, ranges, chunk, exit_every))
-    counts = torch.empty((height // tile, width // tile), dtype=torch.int32, device=rows.device)
+    # each sub-tile CTA raises its tile's count to the rounds it ran (atomicMax)
+    counts = torch.zeros((height // tile, width // tile), dtype=torch.int32, device=rows.device)
     out = _launch("guava_blend_probe",
                   (rows.data_ptr(), order.data_ptr(), ranges.data_ptr(), bg.data_ptr()),
-                  height, width, tile, rows.device, (counts,), (chunk, exit_every))
+                  height, width, tile, rows.device, (counts,),
+                  (chunk, exit_every, probe_stage_rows(chunk)))
     probe_launches += 1
     return (*out, counts)
 
 
 def occupancy(tile):
-    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}, "K7": {...},
-    "K6": {...}}: CTAs of the built K1, K3, K7 and K6 resident on one SM at
-    once at this tile (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
-    the dynamic shared memory each CTA takes."""
+    """{"K1": {"ctas_per_sm": n, "smem_bytes": b}, "K3": {...}, ...}: CTAs of
+    the built K1, K3, K7, K6, K8 and K1p (its 128- and 256-row stages,
+    "K1p/128" and "K1p/256") resident on one SM at once at this tile
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the dynamic shared
+    memory each CTA takes."""
     lib = build.library()
+    queries = {"K1": ("guava_blend_fwd_occupancy",), "K3": ("guava_blend_bwd_occupancy",),
+               "K7": ("guava_blend_resident_occupancy",), "K6": ("guava_blend_bf16_occupancy",),
+               "K8": ("guava_blend_stream_occupancy",),
+               "K1p/128": ("guava_blend_probe_occupancy", 128),
+               "K1p/256": ("guava_blend_probe_occupancy", 256)}
     out = {}
-    for key, entry in (("K1", "guava_blend_fwd_occupancy"), ("K3", "guava_blend_bwd_occupancy"),
-                       ("K7", "guava_blend_resident_occupancy"),
-                       ("K6", "guava_blend_bf16_occupancy")):
+    for key, (entry, *stage) in queries.items():
         n, smem = ctypes.c_int(0), ctypes.c_int(0)
-        build.check(getattr(lib, entry)(tile, ctypes.addressof(n), ctypes.addressof(smem)),
-                    entry)
+        build.check(getattr(lib, entry)(tile, *stage, ctypes.addressof(n),
+                                        ctypes.addressof(smem)), entry)
         out[key] = {"ctas_per_sm": n.value, "smem_bytes": smem.value}
     return out
 

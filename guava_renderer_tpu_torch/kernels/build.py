@@ -22,8 +22,8 @@ SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "me
            "blend_bf16.cu", "blend_resident.cu", "blend_stream.cu", "gather_rows.cu",
            "blend_probe.cu", "dma_bench.cu", "stream_sum.cu", "copy_probe.cu")
 # included by the sources; part of the build's digest
-HEADERS = ("blend_common.cuh", "blend_fwd.cuh", "blend_subtile.cuh", "blend_subtile_fwd.cuh",
-           "blend_bf16_rows.cuh", "async_copy.cuh")
+HEADERS = ("blend_common.cuh", "blend_subtile.cuh", "blend_subtile_fwd.cuh", "blend_bf16_rows.cuh",
+           "async_copy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,12 +45,15 @@ SIGNATURES = {
     # rows, order, ranges, bg, color, invdepth, final_T, g_color, g_invdepth, d_rows,
     # height, width, tile, stream
     "guava_blend_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # tile, &ctas, &smem_bytes: resident CTAs an SM of K1, K3, K7 and K6, and
-    # the dynamic shared memory of a CTA
+    # tile, &ctas, &smem_bytes: resident CTAs an SM of K1, K3, K7, K6 and K8,
+    # and the dynamic shared memory of a CTA; K1p's with its stage's rows
+    # (tile, stage_rows, &ctas, &smem_bytes)
     "guava_blend_fwd_occupancy": (_I, _P, _P),
     "guava_blend_bwd_occupancy": (_I, _P, _P),
     "guava_blend_resident_occupancy": (_I, _P, _P),
     "guava_blend_bf16_occupancy": (_I, _P, _P),
+    "guava_blend_stream_occupancy": (_I, _P, _P),
+    "guava_blend_probe_occupancy": (_I, _I, _P, _P),
     # drows, ids, seg, carry, d_table, n, n_faces, stream
     "guava_face_gather_bwd": (_P, _P, _P, _P, _P, _I, _I, _P),
     # tris, inst_fid, ranges, best, depth, height, width, tile, stream
@@ -65,8 +68,8 @@ SIGNATURES = {
     # rows, ids, out, n, stream
     "guava_gather_rows": (_P, _P, _P, _I, _P),
     # rows, order, ranges, bg, color, invdepth, final_T, counts, height, width, tile, chunk,
-    # exit_every, stream
-    "guava_blend_probe": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # exit_every, stage_rows, stream
+    "guava_blend_probe": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # table, idx, row_bytes, source, pipelined, banks, n_chunks, n_ctas, vals, staged (or
     # null), out (or null: the copies alone), stream
     "guava_row_copy": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),

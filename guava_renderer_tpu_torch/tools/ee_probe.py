@@ -7,8 +7,9 @@ uncapped, packed):
 
   counts   rounds run of rounds total at chunk 32 for exit_every 1 and 4,
            with a checksum of the image;
-  timing   an A/B over exit_every:chunk (--variants; 1:256 is K1's own
-           walk), CUDA events, median of --iters launches;
+  timing   an A/B over exit_every:chunk (--variants; 1:128 is K1's own
+           walk, plus one atomic a CTA; chunks up to 256 are taken), CUDA
+           events, median of --iters launches;
   stages   (--stages) project, bin, pack, the blend (K1) and the whole
            `rasterize`, CUDA events.
 
@@ -56,7 +57,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--variants", default="1:32,0:32,4:32,8:32,1:64,4:64,1:256",
+    ap.add_argument("--variants", default="1:32,0:32,4:32,8:32,1:64,4:64,1:128",
                     help="comma list of exit_every:chunk")
     ap.add_argument("--stages", action="store_true",
                     help="also time project, bin, pack, the blend and rasterize")

@@ -12,7 +12,15 @@ count is also the rule's and both packages must agree tile for tile. On an
 opaque scene, where tiles do finish early, the port's count is held to the
 Pallas body's loop stated in numpy (`pallas_body_counts`), and the JAX
 interpreter's count is shown to stay at ceil(n / chunk).
+
+K1p runs a bin tile as several sub-tile CTAs, each with its own exit test,
+and the tile's count is the largest of theirs (csrc/blend_probe.cu). The
+plain per-sub-tile last deaths (`blend_probe_plain(level="subtile")`) hold
+that rule to the tile's count at every (chunk, exit_every), and the culled
+plain walk holds the deaths to the unculled walk's.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +35,7 @@ from test_torch_gsplat import ATOL, C, _j, jax_settings, make_cams, make_scene
 torch.set_num_threads(2)
 SIZE = 64
 SETTINGS = [(8, 1), (8, 4), (8, 0), (16, 1)]    # (chunk, exit_every)
+SUBTILE_SETTINGS = SETTINGS + [(128, 1), (200, 3), (256, 1)]
 
 
 def opaque_scene():
@@ -216,3 +225,74 @@ def test_ops_blend_probe_layouts():
     for chunk, ee in ((0, 1), (257, 1), (8, -1)):
         with pytest.raises(ValueError, match="chunk must be"):
             tgs.blend_probe(prep, bg, SIZE, SIZE, 16, chunk, ee)
+
+
+@functools.lru_cache(maxsize=None)
+def scene_inputs(scene, tile):
+    """The port's (rows, order, ranges) of the opaque or the spread scene."""
+    return port_inputs(jax_prep(opaque_scene() if scene == "opaque" else make_scene(7), tile))
+
+
+@functools.lru_cache(maxsize=None)
+def last_deaths(scene, tile, culled=False):
+    """blend_probe_plain's image and last deaths per tile and per sub-tile."""
+    rows, order, ranges = scene_inputs(scene, tile)
+    bg = torch.zeros(C)
+    *img, last = tk1.blend_probe_plain(rows, order, ranges, bg, SIZE, SIZE, tile, culled=culled)
+    *_, sub = tk1.blend_probe_plain(rows, order, ranges, bg, SIZE, SIZE, tile, level="subtile",
+                                    culled=culled)
+    return img, last, sub
+
+
+@pytest.mark.parametrize("scene", ["opaque", "spread"])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("chunk,exit_every", SUBTILE_SETTINGS)
+def test_tile_count_is_the_largest_subtile_count(scene, tile, chunk, exit_every):
+    """K1p's count rule: each sub-tile CTA runs chunks_run of its own last
+    death, and the largest of those is chunks_run of the tile's, the count
+    of the tile walked as one (the JAX kernel's)."""
+    _, order, ranges = scene_inputs(scene, tile)
+    _, last, sub = last_deaths(scene, tile)
+    per_side = tile // tk1.subtile_side(tile)
+    assert sub.shape == (SIZE // tile, SIZE // tile, per_side * per_side)
+    want = tk1.chunks_run(last, ranges, chunk, exit_every)
+    got = tk1.chunks_run(sub, ranges, chunk, exit_every)
+    assert got.shape == sub.shape
+    np.testing.assert_array_equal(got.amax(-1).numpy(), want.numpy())
+    # a tile's last pixel is the last of its sub-tiles' last pixels
+    np.testing.assert_array_equal(torch.where((sub >= 0).all(-1), sub.amax(-1), -1).numpy(),
+                                  last.numpy())
+    if scene == "opaque":      # every pixel finishes, and sub-tiles finish apart
+        assert (last >= 0).all()
+        if per_side > 1:
+            assert (sub < last[..., None]).any()
+
+
+@pytest.mark.parametrize("scene", ["opaque", "spread"])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_cull_moves_no_last_death(scene, tile):
+    """The culled plain walk (each pixel skipping the rows its warp's cull
+    drops, as K1p walks) gives the unculled walk's image and its last deaths
+    per tile and per sub-tile: the cull cannot move a count."""
+    img, last, sub = last_deaths(scene, tile)
+    img_c, last_c, sub_c = last_deaths(scene, tile, culled=True)
+    assert torch.equal(last_c, last) and torch.equal(sub_c, sub)
+    for a, b in zip(img_c, img):
+        assert torch.equal(a, b)
+    rows, order, ranges = scene_inputs(scene, tile)
+    keep = tk1.cull_keep_plain(rows, order, ranges, SIZE, SIZE, tile)
+    if scene == "spread":      # the cull drops rows here, so the test sees it work
+        assert not keep.all()
+
+
+@pytest.mark.parametrize("chunk,stage", [(1, 128), (128, 128), (129, 256), (256, 256)])
+def test_probe_stage_rows(chunk, stage):
+    """K1's 128-row stage up to 128 rows a round, the 256-row stage past it."""
+    assert tk1.probe_stage_rows(chunk) == stage
+    assert chunk <= stage
+
+
+def test_probe_stage_rows_rejects_chunks_outside_1_to_256():
+    for chunk in (0, 257):
+        with pytest.raises(ValueError, match="chunk must be"):
+            tk1.probe_stage_rows(chunk)

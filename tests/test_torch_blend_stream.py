@@ -8,6 +8,11 @@ the scene's depths are spaced (`spaced_scene`). The stream's rounded colors
 are compared bit for bit, images to atol 1e-4, gradients after division by
 the JAX gradient's largest entry to atol 2e-4 (the f32 path's tolerance:
 both packages replay the backward on the same f32 rows).
+
+K8 is K1's kernel with the row source `StreamRows`, which takes instance i's
+row from stream row i (csrc/blend_subtile.cuh): the culled walk on the
+stream with the identity order is held to `blend_stream_plain`, and the
+stream's row i to the rounded row of Gaussian order[i].
 """
 
 import jax.numpy as jnp
@@ -94,3 +99,39 @@ def test_stream_blend_is_k1_on_rounded_rows():
     d_rows = tk.blend_bwd_plain(rows.detach(), prep.order, prep.ranges, bg, out[0].detach(),
                                 out[1].detach(), out[2], g_color, g_invd, 16)
     assert rows.grad.abs().max() > 0 and torch.equal(rows.grad, d_rows)
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+@pytest.mark.parametrize("seed,P", [(5, 32), (6, 24)])
+def test_culled_walk_on_the_stream_is_blend_stream_plain(seed, P, tile):
+    """K8's walk in PyTorch ops: the culled walk (K1's, as the kernel runs
+    it) over the stream with order = arange(N), which is StreamRows' row
+    rule, equals blend_stream_plain bit for bit."""
+    _, tc = make_cams(32)
+    prep = tgs.rasterize_prep(*_t(spaced_scene(seed, P=P)), tc, tgs.RasterizeSettings(tile=tile))
+    stream = tgs.stream_rows(prep.rows, prep.order)
+    bg = torch.linspace(0, 1, C)
+    ids = torch.arange(stream.shape[0], dtype=torch.int32)
+    got = tk.blend_culled_plain(stream, ids, prep.ranges, bg, 32, 32, tile)
+    want = tk.blend_stream_plain(stream, prep.ranges, bg, 32, 32, tile)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert want[0].abs().max() > 0
+    assert not tk.cull_keep_plain(stream, ids, prep.ranges, 32, 32, tile).all()
+
+
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_stream_row_i_is_instance_i(tile):
+    """The address rule StreamRows relies on: the stream is one contiguous
+    (N, 44) f32 block whose row i (bytes 176 i .. 176 i + 175) is the
+    rounded row of Gaussian order[i], so tile t's rows are the run
+    ranges[t] .. ranges[t + 1] - 1."""
+    _, tc = make_cams(32)
+    prep = tgs.rasterize_prep(*_t(spaced_scene(5)), tc, tgs.RasterizeSettings(tile=tile))
+    stream = tgs.stream_rows(prep.rows, prep.order)
+    assert stream.is_contiguous() and stream.dtype == torch.float32
+    assert stream.shape == (int(prep.ranges[-1]), tk.ROW) and tk.ROW * 4 % 16 == 0
+    flat = stream.reshape(-1)
+    rounded = tgs.round_colors_bf16(prep.rows.detach())
+    for i, gid in enumerate(prep.order.tolist()):
+        assert torch.equal(flat[i * tk.ROW:(i + 1) * tk.ROW], rounded[gid])
