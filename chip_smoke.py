@@ -8,7 +8,12 @@ Phases (one line each, then a JSON line of the kernels, then a last line
   2. build the CUDA kernels from `guava_renderer_tpu_torch/csrc`;
   3. each of the five kernels against its plain PyTorch version at the
      shapes of the full-scale bench scene's frame 0, with times (CUDA
-     events, medians); K1 also on a tile-16 binning of the same frame
+     events, medians); K2 in turns with table[ids].T and the launch floor,
+     and on small edge cases (odd N, unaligned ids, one face, a face a
+     texel); K5 bit-equal to its plain version and to its split model,
+     and on the z-buffer edge scenes of testing.zbuffer_scenes at tiles 8,
+     16 and 32, one of them with slack around its runs;
+     K1 also on a tile-16 binning of the same frame
      against its plain version there, with the cull's kept rows at both
      tiles; the registers and shared memory ptxas gave K1, K3, K7, K6, K8
      and K1p's two stages and their resident CTAs an SM; K4 bit-equal to a
@@ -109,8 +114,10 @@ from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
     RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident, resident_count,
     resident_ids, round_colors_bf16, stream_rows)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
-from guava_renderer_tpu_torch.ops.meshraster import bin_mesh, rasterize_mesh  # noqa: E402
-from guava_renderer_tpu_torch.testing import make_micro_pipeline  # noqa: E402
+from guava_renderer_tpu_torch.ops.meshraster import (  # noqa: E402
+    bin_mesh, bin_triangles, rasterize_mesh)
+from guava_renderer_tpu_torch.testing import (  # noqa: E402
+    make_micro_pipeline, pad_instances, zbuffer_scenes)
 from guava_renderer_tpu_torch.tools import (  # noqa: E402
     device_ms, dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
@@ -181,6 +188,15 @@ MICRO_GRAD_RTOL, MICRO_GRAD_ATOL = 2e-3, 1e-4
 MICRO_BF16_GRAD_ATOL = 1e-2
 PLANNED_GRAD_TOL = 1e-4        # planned against row-gather vertex gradient, share of its max
 K5_DEPTH_TOL = 1e-6
+# K5's edge cases (testing.zbuffer_scenes at SIZE^2), each at these tiles
+K5_EDGE_TILES = (8, 16, 32)
+# K2's edge cases on the card, (N, Fc, ids): seeded sorted ids ("sorted"), one face on
+# every texel, a new face at every texel ("each texel"), and sorted ids starting 4 bytes
+# past a 16-byte boundary ("off 16 bytes"); N % 4 != 0 and unaligned ids take the
+# kernel's one-float path
+K2_EDGE_CASES = ((5000, 600, "sorted"), (4097, 600, "sorted"), (256, 20, "sorted"),
+                 (4096, 1, "one face"), (4099, 2, "sorted"), (4096, 4096, "each texel"),
+                 (4101, 37, "each texel"), (4096, 600, "off 16 bytes"))
 SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
 # a frame of an avatar created with random weights is rendered only if it
 # bins at most this many (Gaussian, tile) instances
@@ -263,13 +279,77 @@ def k4_edge_cases():
                f"plain model, max abs vs index_add_ {float((got - want).abs().max()):.3g}")
 
 
+def k2_edge_cases():
+    """Phase 3: K2 on K2_EDGE_CASES, each equal to face_gather_plain."""
+    g = np.random.default_rng(2)
+    for n, n_faces, kind in K2_EDGE_CASES:
+        table = torch.as_tensor(g.normal(size=(n_faces, 16)).astype(np.float32), device=DEV)
+        if kind == "one face":
+            ids = np.zeros(n, np.int64)
+        elif kind == "each texel":
+            ids = np.arange(n) % n_faces
+        else:
+            ids = np.sort(g.integers(0, n_faces, n))
+        it = torch.as_tensor(ids, dtype=torch.int32, device=DEV)
+        if kind == "off 16 bytes":
+            it = torch.cat([it[:1], it])[1:]
+        if not torch.equal(k2.face_gather(table, it), k2.face_gather_plain(table, it)):
+            raise SystemExit(f"K2 differs from its plain version at N={n} Fc={n_faces} ({kind})")
+    say(3, "K2 edge cases (N, Fc, ids): " + ", ".join(f"({n}, {f}, {k})"
+                                                    for n, f, k in K2_EDGE_CASES)
+        + ": each equal to its plain version")
+
+
+def k5_edge_cases():
+    """Phase 3: K5 on testing.zbuffer_scenes at SIZE^2 and K5_EDGE_TILES: the
+    best instance equal to mesh_zbuffer_plain's and to the split model's,
+    depth within K5_DEPTH_TOL, +inf exactly on the empty pixels. The
+    tie_segments scene runs again with tile 0's run as slack before the
+    first run and after the last (`+slack`), which no tile may read."""
+    lines = []
+    cases = []
+    for name, (tri, tri_z) in zbuffer_scenes(SIZE, k5.SEGMENT, seed=5).items():
+        for tile in K5_EDGE_TILES:
+            b = bin_triangles(torch.as_tensor(tri, device=DEV), torch.as_tensor(tri_z, device=DEV),
+                              SIZE, SIZE, tile)
+            cases.append((name, tile, b, b.inst_fid, b.ranges))
+            if name == "tie_segments":
+                run0 = b.inst_fid[int(b.ranges[0]):int(b.ranges[1])]
+                cases.append((name + "+slack", tile, b,
+                              *pad_instances(b.inst_fid, b.ranges, run0, run0)))
+    for name, tile, b, inst_fid, ranges in cases:
+        args = (b.tris, inst_fid, ranges, SIZE, SIZE, tile)
+        got = k5.mesh_zbuffer(*args)
+        want = k5.mesh_zbuffer_plain(*args)
+        model = k5.mesh_zbuffer_split_plain(*args)
+        where = f"K5 edge case {name} at tile {tile}"
+        if not torch.equal(got[0], want[0]):
+            raise SystemExit(f"{where}: best differs from the plain version at "
+                             f"{int((got[0] != want[0]).sum())} pixels")
+        if not torch.equal(got[0], model[0]):
+            raise SystemExit(f"{where}: best differs from the split model")
+        hit = want[0] >= 0
+        if not torch.equal(torch.isinf(got[1]), ~hit):
+            raise SystemExit(f"{where}: depth is not +inf exactly on the empty pixels")
+        err = float((got[1][hit] - want[1][hit]).abs().max()) if bool(hit.any()) else 0.0
+        if not err <= K5_DEPTH_TOL:
+            raise SystemExit(f"{where}: depth off by {err} > {K5_DEPTH_TOL}")
+        runs = ranges[1:] - ranges[:-1]
+        lines.append(f"{name}/{tile}: {inst_fid.numel()} instances, busiest tile "
+                     f"{int(runs.max())}, {int((runs == 0).sum())} empty tiles, {int(hit.sum())} "
+                     f"hit pixels, depth {'bit-equal' if torch.equal(got[1], want[1]) else err}")
+    say(3, f"K5 edge cases at {SIZE}^2 (segment {k5.SEGMENT}), best equal to the plain version "
+           f"and the split model, +inf on every empty pixel: " + "; ".join(lines))
+
+
 def in_turns(runs, cycles=2):
-    """Median device ms of each of two callables timed in turns (a, b, b, a)
-    `cycles` times (`cuda_ms`, 10 launches each), so that drift favours neither."""
-    (ka, fa), (kb, fb) = runs.items()
-    times = {ka: [], kb: []}
+    """Median device ms of each callable timed in turns, in order then in
+    reverse ((a, b, b, a) for two), `cycles` times (`cuda_ms`, 10 launches
+    each), so that drift favours none."""
+    seq = list(runs.items())
+    times = {k: [] for k in runs}
     for _ in range(cycles):
-        for k, fn in ((ka, fa), (kb, fb), (kb, fb), (ka, fa)):
+        for k, fn in seq + seq[::-1]:
             times[k].append(cuda_ms(fn))
     return {k: statistics.median(v) for k, v in times.items()}
 
@@ -1063,15 +1143,27 @@ def main():
         err2 = float((got2 - want2).abs().max())
         if not torch.equal(got2, want2):
             raise SystemExit(f"K2 disagrees with its plain version: max abs {err2}")
-        k2_ms = cuda_ms(lambda: k2.face_gather(table, ids))
+        k2_turns = in_turns({
+            "K2": lambda: k2.face_gather(table, ids),
+            "table[ids].T": lambda: table[ids].T.contiguous(),
+            "launch floor": mosaic_probe.launch_floor}, cycles=3)
+        k2_ms, k2_lib_ms, k2_floor_ms = (k2_turns[k] for k in k2_turns)
         k2_plain_ms = cuda_ms(lambda: k2.face_gather_plain(table, ids))
-        k2_lib_ms = cuda_ms(lambda: table[ids].T.contiguous())
         n_tex, n_faces = ids.shape[0], table.shape[0]
         k2_bytes = 16 * n_tex * 4 + n_tex * 4 + n_faces * 16 * 4
         k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
-        say(3, f"K2 face gather: N={n_tex} Fc={n_faces}, equal to plain (max abs {err2}); "
-               f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, table[ids].T {k2_lib_ms:.4f} ms, "
-               f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB)")
+        k2_occ = {**k2.occupancy(), "ptxas": ptxas_usage("18face_gather_kernelILb1E")}
+        ids_cpu = ids.cpu()
+        run_ids = ids_cpu[: n_tex // 4 * 4].reshape(-1, 4)
+        distinct = 1 + int((run_ids[:, 1:] != run_ids[:, :-1]).sum()) / run_ids.shape[0]
+        say(3, f"K2 face gather: N={n_tex} Fc={n_faces}, {distinct:.3f} distinct ids a thread's "
+               f"4 texels; equal to plain (max abs {err2}); in turns (K2, table[ids].T, launch "
+               f"floor, then back, three times; medians) kernel {k2_ms:.4f} ms, table[ids].T "
+               f"{k2_lib_ms:.4f} ms, launch floor {k2_floor_ms:.4f} ms; plain "
+               f"{k2_plain_ms:.4f} ms; bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB), "
+               f"{k2_bound / k2_ms:.3f} of it reached; {k2_occ['ctas_per_sm']} CTAs an SM, "
+               f"ptxas: {k2_occ['ptxas']}")
+        k2_edge_cases()
 
         # K4 (the gather's backward) on the same plan: a seeded (16, N) gradient
         seg = dplan.segment_starts
@@ -1256,11 +1348,15 @@ def main():
         # K5 on the frame-0 mesh of the bench rig
         verts0 = res.vertices[0].contiguous()
         bins = bin_mesh(verts0, sc.faces, sc.cam, MESH_TILE)
-        got5 = k5.mesh_zbuffer(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE, MESH_TILE)
-        want5 = k5.mesh_zbuffer_plain(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE,
-                                      MESH_TILE)
+        args5 = (bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE, MESH_TILE)
+        got5 = k5.mesh_zbuffer(*args5)
+        want5 = k5.mesh_zbuffer_plain(*args5)
+        cull5 = {}
+        model5 = k5.mesh_zbuffer_split_plain(*args5, stats=cull5)
         torch.cuda.synchronize()
         hit = want5[0] >= 0
+        if not (torch.equal(model5[0], want5[0]) and torch.equal(model5[1], want5[1])):
+            raise SystemExit("the split model of K5 differs from mesh_zbuffer_plain")
         if not torch.equal(got5[0], want5[0]):
             raise SystemExit(f"K5 best instance differs from its plain version at "
                              f"{int((got5[0] != want5[0]).sum())} pixels")
@@ -1274,27 +1370,40 @@ def main():
         face_p = torch.where(hit, bins.inst_fid[want5[0].clamp(min=0).long()], -1)
         if not torch.equal(face_k, face_p):
             raise SystemExit("K5 face_idx differs from its plain version")
+        k5_ms = cuda_ms(lambda: k5.mesh_zbuffer(*args5), reps=20)
         n_inst = bins.inst_fid.shape[0]
-        mesh_counts = bins.ranges[1:] - bins.ranges[:-1]
-        k5_ms = cuda_ms(lambda: k5.mesh_zbuffer(bins.tris, bins.inst_fid, bins.ranges, SIZE, SIZE,
-                                                MESH_TILE))
+        mesh_counts = (bins.ranges[1:] - bins.ranges[:-1]).cpu()
+        starts = bins.ranges[:-1].cpu()
+        split_tiles = int(((mesh_counts > 0)
+                           & ((starts + mesh_counts - 1) // k5.SEGMENT > starts // k5.SEGMENT)).sum())
         k5_plain_reps = 3   # the plain z-buffer steps through the busiest tile's run
-        k5_plain_ms = cuda_ms(lambda: k5.mesh_zbuffer_plain(bins.tris, bins.inst_fid, bins.ranges,
-                                                            SIZE, SIZE, MESH_TILE),
-                              reps=k5_plain_reps, warmup=1)
+        k5_plain_ms = cuda_ms(lambda: k5.mesh_zbuffer_plain(*args5), reps=k5_plain_reps, warmup=1)
         k5_pairs = n_inst * MESH_TILE * MESH_TILE
         k5_bytes = (bins.tris.numel() + n_inst + bins.ranges.numel() + 2 * SIZE * SIZE) * 4
         k5_ops = k5_pairs * K5_OPS_PAIR + n_inst * K5_OPS_INSTANCE
         k5_bound = max(k5_bytes / HBM_BYTES_PER_S, k5_ops / FP32_FLOPS) * 1e3
         k5_bound_by = "operations" if k5_ops / FP32_FLOPS > k5_bytes / HBM_BYTES_PER_S else "bytes"
+        k5_occ = {**k5.occupancy(MESH_TILE),
+                  "ptxas": ptxas_usage("19mesh_zbuffer_kernelILi256E"),
+                  "ptxas_merge": ptxas_usage("25mesh_zbuffer_merge_kernel")}
         say(3, f"K5 mesh z-buffer: F={sc.faces.shape[0]} instances={n_inst} "
                f"busiest tile={int(mesh_counts.max())} max tiles a face="
                f"{int(bins.tiles_per_face.max())} hit pixels={float(hit.float().mean()):.4f}; "
-               f"best instance and face_idx equal to plain, depth max abs {err5:.3g} "
-               f"(tol {K5_DEPTH_TOL}); kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.2f} ms "
-               f"(median of {k5_plain_reps}), bound {k5_bound:.4f} ms by {k5_bound_by} "
-               f"({k5_ops / 1e9:.3f} GFLOP over {k5_pairs} pairs, {k5_bytes / 1e6:.2f} MB)")
-    del got1, want1, got2, want2, got5, want5, got4, want4, want4_cpu, drows, color1, invd1, final_t1
+               f"best instance and face_idx equal to plain and to the split model, depth max abs "
+               f"{err5:.3g} (tol {K5_DEPTH_TOL}); segments of "
+               f"{k5.SEGMENT}: {int((mesh_counts > 0).sum())} non-empty tiles, {split_tiles} split; "
+               f"{k5.LAUNCHES} launches a call; cull (split model): of {cull5['warp_pairs']} "
+               f"(instance, warp) pairs the warps walk {cull5['warp_pairs_walked']} "
+               f"({cull5['warp_pairs_walked'] / max(cull5['warp_pairs'], 1):.4f}), of their "
+               f"{cull5['pairs_walked']} (instance, pixel) pairs {cull5['pairs_divided']} divide "
+               f"({cull5['pairs_divided'] / max(k5_pairs, 1):.4f} of the {k5_pairs} tile-run pairs)"
+               f"; kernel {k5_ms:.4f} ms (median of 20), plain {k5_plain_ms:.2f} ms (median of {k5_plain_reps}), bound "
+               f"{k5_bound:.4f} ms by {k5_bound_by} ({k5_ops / 1e9:.3f} GFLOP over {k5_pairs} "
+               f"pairs, {k5_bytes / 1e6:.2f} MB); {k5_occ['ctas_per_sm']} CTAs an SM, "
+               f"{k5_occ['smem_bytes']} B shared; ptxas: {k5_occ['ptxas']}; merge: "
+               f"{k5_occ['ptxas_merge']}")
+        k5_edge_cases()
+    del got1, want1, got2, want2, got5, want5, model5, got4, want4, want4_cpu, drows, color1, invd1, final_t1
 
     # ---- 4. the main path at full width ----
     torch.backends.cudnn.allow_tf32 = False
@@ -1430,9 +1539,10 @@ def main():
         torch.cuda.synchronize()
         create_ms.append((time.perf_counter() - t0) * 1e3)
     create_launches = k5.launches
-    if create_launches != N_CREATIONS or k1.launches or k2.launches:
+    if create_launches != N_CREATIONS * k5.LAUNCHES or k1.launches or k2.launches:
         raise SystemExit(f"{N_CREATIONS} creations launched K5 {create_launches} times, "
-                         f"K1 {k1.launches}, K2 {k2.launches}: expected one K5 a creation")
+                         f"K1 {k1.launches}, K2 {k2.launches}: expected one K5 call "
+                         f"({k5.LAUNCHES} launches) a creation")
     create_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_avatar(created, "creation")
     n_visible = int(cextra["visible_faces"].sum())
@@ -1583,8 +1693,9 @@ def main():
     k3_per_step = [b - a for a, b in zip(k3_seen[:-1], k3_seen[1:])]
     if k3_per_step != [1] * n_steps:
         raise SystemExit(f"training: K3 launches a step {k3_per_step}, expected 1 (the batch size)")
-    # a step launches K1 and K5 once an item; the closing validation adds one of each
-    if train_launches != {"K1": n_steps + 1, "K3": n_steps, "K5": n_steps + 1}:
+    # a step calls K1 and K5 once an item; the closing validation adds one of each
+    if train_launches != {"K1": n_steps + 1, "K3": n_steps,
+                          "K5": (n_steps + 1) * k5.LAUNCHES}:
         raise SystemExit(f"training: launches {train_launches} over {n_steps} steps and one "
                          f"validation")
     moved = {n: float((p.detach() - before[n]).abs().max())
@@ -1635,7 +1746,8 @@ def main():
     torch.cuda.synchronize()
     accum_ms = (time.perf_counter() - t0) * 1e3
     accum_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
-    if accum_launches != {"K1": 2, "K3": 2, "K5": 2} or not math.isfinite(float(loss2)):
+    if accum_launches != {"K1": 2, "K3": 2, "K5": 2 * k5.LAUNCHES} \
+            or not math.isfinite(float(loss2)):
         raise SystemExit(f"accumulated step of batch 2: launches {accum_launches}, loss "
                          f"{float(loss2)}")
     say(8, f"one accumulated step of batch 2: {accum_ms:.1f} ms, loss {float(loss2):.4f}, "
@@ -1702,7 +1814,7 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": k2_lib_ms},
+         "bound_by": "bytes", "library_ms": k2_lib_ms, "floor_ms": k2_floor_ms, **k2_occ},
         {"name": "K3 tile blend backward", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend_bwd.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1457", "launches": train_launches["K3"],
@@ -1716,9 +1828,11 @@ def main():
          "library_ms": k4_lib_ms},
         {"name": "K5 mesh z-buffer", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
-         "replaces": "guava_renderer_tpu/ops/meshraster.py:39", "launches": create_launches,
+         "replaces": "guava_renderer_tpu/ops/meshraster.py:39",
+         "launches": create_launches + train_launches["K5"] + accum_launches["K5"],
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-         "bound_by": k5_bound_by, "library_ms": None},
+         "bound_by": k5_bound_by, "library_ms": None, "model_cull": cull5,
+         **k5_occ},
         *variant_kernels,
         *probe_kernels,
     ]

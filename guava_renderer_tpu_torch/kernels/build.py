@@ -42,6 +42,8 @@ SIGNATURES = {
     "guava_blend_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # table, ids, out, n, stream
     "guava_face_gather": (_P, _P, _P, _I, _P),
+    # &ctas, &smem_bytes: resident CTAs an SM of K2
+    "guava_face_gather_occupancy": (_P, _P),
     # rows, order, ranges, bg, color, invdepth, final_T, g_color, g_invdepth, d_rows,
     # height, width, tile, stream
     "guava_blend_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -56,8 +58,10 @@ SIGNATURES = {
     "guava_blend_probe_occupancy": (_I, _I, _P, _P),
     # drows, ids, seg, carry, d_table, n, n_faces, stream
     "guava_face_gather_bwd": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # tris, inst_fid, ranges, best, depth, height, width, tile, stream
-    "guava_mesh_zbuffer": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # tris, inst_fid, ranges, best, depth, first, cont, n_inst, height, width, tile, stream
+    "guava_mesh_zbuffer": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # tile, &ctas, &smem_bytes: resident CTAs an SM of K5's segment kernel
+    "guava_mesh_zbuffer_occupancy": (_I, _P, _P),
     # packed, order, ranges, bg, color, invdepth, final_T, height, width, tile, stream
     "guava_blend_bf16_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # rows, ltable, P, L, order, ranges, bg, color, invdepth, final_T, height, width, tile,

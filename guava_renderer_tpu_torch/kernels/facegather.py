@@ -12,6 +12,8 @@ order of additions in PyTorch, for the tests.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -116,6 +118,19 @@ def _check(table, ids):
         raise ValueError(f"unsupported device {table.device}")
     if table.is_cuda and not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("table and ids must be contiguous")
+    if table.is_cuda and table.data_ptr() % 16:
+        raise ValueError("the gather reads table rows in 16-byte pieces: the table must start "
+                         "on a 16-byte boundary")
+
+
+def occupancy():
+    """{"ctas_per_sm": n, "smem_bytes": b} of the built K2
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().guava_face_gather_occupancy(ctypes.addressof(n),
+                                                             ctypes.addressof(smem)),
+                "guava_face_gather_occupancy")
+    return {"ctas_per_sm": n.value, "smem_bytes": smem.value}
 
 
 def _forward(table, ids):

@@ -40,18 +40,22 @@ class MeshBins(NamedTuple):
 
 def bin_mesh(verts: torch.Tensor, faces: torch.Tensor, cam: Camera, tile: int = 16) -> MeshBins:
     """Project verts (V, 3) world and bin faces (F, 3) to tile x tile tiles."""
-    H, W = cam.height, cam.width
+    pix, z = project_points(cam, verts)      # (V, 2), (V,)
+    faces = faces.long()
+    return bin_triangles(pix[faces], z[faces], cam.height, cam.width, tile)
+
+
+def bin_triangles(tri: torch.Tensor, tri_z: torch.Tensor, height: int, width: int,
+                  tile: int = 16) -> MeshBins:
+    """Bin projected triangles, tri (F, 3, 2) pixel xy and tri_z (F, 3)
+    camera depth, to the tile x tile tiles of a height x width image."""
+    H, W = height, width
     if H % tile or W % tile:
         raise ValueError(f"image {H}x{W} must tile by {tile}")
-    device = verts.device
+    device = tri.device
     gx, gy = W // tile, H // tile
     n_tiles = gx * gy
-    faces = faces.long()
-    F = faces.shape[0]
-
-    pix, z = project_points(cam, verts)      # (V, 2), (V,)
-    tri = pix[faces]                         # (F, 3, 2)
-    tri_z = z[faces]                         # (F, 3)
+    F = tri.shape[0]
     valid = (tri_z > 0.01).all(dim=-1)       # near-plane cull (conservative)
 
     def tile_index(v, hi, plus):

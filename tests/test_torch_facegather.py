@@ -129,3 +129,30 @@ def test_deform_paths_vs_jax(case):
                                    rtol=0, err_msg=name)
         np.testing.assert_allclose(rp, np.asarray(getattr(want_plan, name))[0], atol=ATOL,
                                    rtol=0, err_msg=name)
+
+
+# plans like the CUDA gather's edge cases on the card (chip_smoke.py K2_EDGE_CASES, which
+# also take N % 4 != 0 straight to the kernel): N texels (a multiple of 256, as the JAX
+# plan needs) binding Fc faces, sorted by the plan into runs of one face, a new face at
+# every texel, or one face throughout
+PLAN_CASES = ((5120, 600, "random"), (4352, 600, "random"), (256, 20, "random"),
+              (4096, 1, "one face"), (4096, 2, "random"), (4096, 4096, "each texel"))
+
+
+@pytest.mark.parametrize("n,n_faces,kind", PLAN_CASES)
+def test_plain_gather_equals_pallas_on_plans(n, n_faces, kind):
+    rng = np.random.default_rng(n + n_faces)
+    if kind == "one face":
+        binding = np.zeros(n, np.int64)
+    elif kind == "each texel":
+        binding = rng.permutation(n) % n_faces
+    else:
+        binding = rng.integers(0, n_faces, n)
+    valid = rng.uniform(size=n) < 0.9
+    jp = jfg.build_face_sort_plan(binding, valid)
+    tp = tfg.build_face_sort_plan(binding, valid)
+    np.testing.assert_array_equal(tp.compact_ids, jp.compact_ids)
+    table = rng.normal(size=(jp.n_compact, 16)).astype(np.float32)
+    want = jfg.face_window_gather(jnp.asarray(table), jnp.asarray(jp.compact_ids), jp)
+    got = tk2.face_gather(torch.tensor(table), torch.tensor(tp.compact_ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
