@@ -41,9 +41,13 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      backward kernels) against the row-gather path's at the bench avatar;
  11. the raster variants (bf16 rows: K6; size classes with a resident
      table: K7, built by K9; streaming: K8): each kernel against its plain
-     version and against K1 at frame 0, the four forward blends in turns
+     version and against K1 at frame 0; K9 in turns with index_select and
+     the launch floor at three table sizes, behind the ranking that feeds
+     it against the ranking alone, and on small edge cases; the committed
+     golden render through K1 and through K7 with K9; the four forward blends in turns
      (one kernel with four row sources), 20 frames through
-     render_frame under each setting, a 64^2 frame GPU vs CPU, the frame's
+     render_frame under each setting (the vmem frame's device operations
+     against the default frame's, by name), a 64^2 frame GPU vs CPU, the frame's
      gradient against the default path's, a 32^2 bf16 training step GPU vs
      CPU and two full-width training steps under each setting;
  12. the probe tools at their defaults (K1p in tools/ee_probe.py, T2
@@ -58,7 +62,10 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      (128, 1) and (256, 1) on a tile-8 binning (64-thread CTAs, rounds
      longer than the CTA) against its plain counts and K1's image there,
      every T2 variant against its plain version and its staged rows against index_select (T2 timed as the
-     copies alone and with its in-order sum), T3 against table.sum(0) and
+     copies alone and with its in-order sum), T2's rows variant on two
+     yardstick id sets (a permutation of the table; ids over the 16.8 MB
+     that the contig variants read) and each variant's rate against its
+     yardstick's, T3 against table.sum(0) and
      the float64 sum; each T1 probe in turns with one PyTorch call that
      writes the same values and the launch floor (one near-empty kernel),
      with the bytes each must move.
@@ -111,8 +118,8 @@ from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
 from guava_renderer_tpu_torch.ops.facegather import (  # noqa: E402
     build_face_sort_plan, compact_faces, segment_starts)
 from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
-    RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident, resident_count,
-    resident_ids, round_colors_bf16, stream_rows)
+    MAX_RESIDENT_ROWS, RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident,
+    resident_count, resident_ids, resident_keys, round_colors_bf16, stream_rows)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import (  # noqa: E402
     bin_mesh, bin_triangles, rasterize_mesh)
@@ -120,6 +127,7 @@ from guava_renderer_tpu_torch.testing import (  # noqa: E402
     make_micro_pipeline, pad_instances, zbuffer_scenes)
 from guava_renderer_tpu_torch.tools import (  # noqa: E402
     device_ms, dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
+from guava_renderer_tpu_torch.tools.dma_bench import HOT_ROWS  # noqa: E402
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from guava_renderer_tpu_torch.train.losses import LossConfig, OptimizationLoss  # noqa: E402
 from guava_renderer_tpu_torch.train.lpips import LPIPS, init_lpips_  # noqa: E402
@@ -197,6 +205,15 @@ K5_EDGE_TILES = (8, 16, 32)
 K2_EDGE_CASES = ((5000, 600, "sorted"), (4097, 600, "sorted"), (256, 20, "sorted"),
                  (4096, 1, "one face"), (4099, 2, "sorted"), (4096, 4096, "each texel"),
                  (4101, 37, "each texel"), (4096, 600, "off 16 bytes"))
+# K9 alone beside the bench's resident table (L = 1,065): seeded distinct ids, up to the
+# largest table the settings accept (MAX_RESIDENT_ROWS = 16,384 rows, 5.83 MB)
+K9_SIZES = (4096, MAX_RESIDENT_ROWS)
+# the committed golden render (tests/golden/raster_scene_v1.npz) at the tolerances of
+# tests/test_golden_regression.py; its resident path keeps the first two classes of this
+# ladder, 48 of the scene's 96 Gaussians (tests/test_torch_golden_raster.py)
+GOLDEN = ROOT / "tests" / "golden" / "raster_scene_v1.npz"
+GOLDEN_ATOL = 2e-5
+GOLDEN_LADDER = ((16, 16), (32, 16), (48, 16))
 SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
 # a frame of an avatar created with random weights is rendered only if it
 # bins at most this many (Gaussian, tile) instances
@@ -300,6 +317,91 @@ def k2_edge_cases():
         + ": each equal to its plain version")
 
 
+def k9_alone(rows, keys, id_bits):
+    """Phase 11: K9 alone, in turns with index_select and the launch floor
+    (in order then back, twice; medians), at the bench's resident table
+    (`keys` of the ranking) and at K9_SIZES of seeded distinct ids, each
+    equal to its plain version. -> {L: times and bound}."""
+    g = np.random.default_rng(9)
+    P = rows.shape[0]
+    cases = {keys.shape[0]: keys}
+    for n in K9_SIZES:
+        ids = torch.as_tensor(g.choice(P, n, replace=False), device=DEV)
+        cases[n] = (torch.arange(n, device=DEV) << id_bits) | ids
+    out = {}
+    for n, kk in cases.items():
+        ids64 = kk & ((1 << id_bits) - 1)
+        got, lids = k9.gather_resident(rows, kk, id_bits)
+        want, want_lids = k9.gather_resident_plain(rows, kk, id_bits)
+        if not (torch.equal(got, want) and torch.equal(lids, want_lids)
+                and torch.equal(k9.gather_rows(rows, lids), want)):
+            raise SystemExit(f"K9 differs from its plain version at L={n}")
+        t = turn_times({"K9": lambda: k9.gather_resident(rows, kk, id_bits),
+                        "index_select": lambda: torch.index_select(rows, 0, ids64),
+                        "launch floor": mosaic_probe.launch_floor})
+        n_bytes = n * k1.ROW * 4 * 2 + n * 4
+        out[n] = {"ms": statistics.median(t["K9"]), "ms_spread": least_most(t["K9"]),
+                  "index_select_ms": statistics.median(t["index_select"]),
+                  "floor_ms": statistics.median(t["launch floor"]),
+                  "floor_spread": least_most(t["launch floor"]),
+                  "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bytes": n_bytes}
+    return out
+
+
+def k9_edge_cases(rows):
+    """Phase 11: both K9 entries on small cases, each equal to its plain
+    version; an empty table launches nothing."""
+    P = rows.shape[0]
+    g = np.random.default_rng(19)
+    cases = {"L=0": [], "L=1": [P // 2], "repeated ids": g.integers(0, 5, 300),
+             "ids 0 and P-1": [0, P - 1, 0, P - 1, P - 1]}
+    for name, ids in cases.items():
+        it = torch.as_tensor(np.asarray(ids, np.int32), device=DEV)
+        keys = (torch.arange(it.numel(), device=DEV) << 31) | it.long()
+        before = k9.launches
+        got = k9.gather_rows(rows, it)
+        table, lids = k9.gather_resident(rows, keys, 31)
+        want = k9.gather_rows_plain(rows, it)
+        if not (torch.equal(got, want) and torch.equal(table, want) and torch.equal(lids, it)):
+            raise SystemExit(f"K9 edge case {name}: differs from its plain version")
+        if k9.launches - before != (0 if name == "L=0" else 2):
+            raise SystemExit(f"K9 edge case {name}: {k9.launches - before} launches")
+    say(11, "K9 edge cases (" + ", ".join(cases) + "): both entries equal to their plain "
+            "versions; L=0 launched nothing")
+
+
+def golden_on_card():
+    """Phase 11: the committed golden render through K1 and through K7 with
+    K9 on the card: radii equal, color and invdepth within GOLDEN_ATOL."""
+    s = np.load(GOLDEN)
+    tf = torch.tensor(float(s["tanfov"]), dtype=torch.float32, device=DEV)
+    n = int(s["size"])
+    cam = Camera(R=torch.eye(3, device=DEV), t=torch.zeros(3, device=DEV), tanfovx=tf,
+                 tanfovy=tf, width=n, height=n)
+    args = [torch.as_tensor(s[k], device=DEV)
+            for k in ("means", "colors", "opacity", "scales", "quats", "bg")]
+    errs = {}
+    for name, st in (("K1", RasterizeSettings(tile=16)),
+                     ("K7 + K9", RasterizeSettings(tile=16, size_classes=GOLDEN_LADDER,
+                                                   vmem_classes=2))):
+        k1.launches = k1.resident_launches = k9.launches = 0
+        with torch.no_grad():
+            color, radii, invd = rasterize(*args[:5], cam, args[5], st)
+        counts = (k1.launches, k1.resident_launches, k9.launches)
+        if counts != ((1, 0, 0) if name == "K1" else (0, 1, 1)):
+            raise SystemExit(f"golden render by {name}: launches (K1, K7, K9) {counts}")
+        if not np.array_equal(radii.cpu().numpy(), s["radii"]):
+            raise SystemExit(f"golden render by {name}: radii differ")
+        errs[name] = (float(np.abs(color.cpu().numpy() - s["color"]).max()),
+                      float(np.abs(invd.cpu().numpy() - s["invdepth"]).max()))
+        if not max(errs[name]) <= GOLDEN_ATOL:
+            raise SystemExit(f"golden render by {name}: max abs (color, invdepth) "
+                             f"{errs[name]} > {GOLDEN_ATOL}")
+    say(11, f"golden render ({GOLDEN.name}, tile 16): radii equal; max abs (color, invdepth) "
+            + ", ".join(f"{k} {c:.3g}, {i:.3g}" for k, (c, i) in errs.items())
+            + f" (tol {GOLDEN_ATOL})")
+
+
 def k5_edge_cases():
     """Phase 3: K5 on testing.zbuffer_scenes at SIZE^2 and K5_EDGE_TILES: the
     best instance equal to mesh_zbuffer_plain's and to the split model's,
@@ -342,16 +444,26 @@ def k5_edge_cases():
            f"and the split model, +inf on every empty pixel: " + "; ".join(lines))
 
 
-def in_turns(runs, cycles=2):
-    """Median device ms of each callable timed in turns, in order then in
-    reverse ((a, b, b, a) for two), `cycles` times (`cuda_ms`, 10 launches
-    each), so that drift favours none."""
+def turn_times(runs, cycles=2):
+    """Device ms of each callable timed in turns, in order then in reverse
+    ((a, b, b, a) for two), `cycles` times (`cuda_ms`, 10 launches each),
+    so that drift favours none -> {name: [ms of each turn]}."""
     seq = list(runs.items())
     times = {k: [] for k in runs}
     for _ in range(cycles):
         for k, fn in seq + seq[::-1]:
             times[k].append(cuda_ms(fn))
-    return {k: statistics.median(v) for k, v in times.items()}
+    return times
+
+
+def in_turns(runs, cycles=2):
+    """Median device ms of each callable timed in `turn_times`."""
+    return {k: statistics.median(v) for k, v in turn_times(runs, cycles).items()}
+
+
+def least_most(ms):
+    """[least, most] of a list of ms."""
+    return [min(ms), max(ms)]
 
 
 def k1_pairs(rows, order, ranges, tile):
@@ -512,20 +624,47 @@ def train_split(statics, lpips, state, batch, n):
     return acc, instances
 
 
-def profile_window(fn, n):
-    """torch.profiler over n calls of fn -> (device busy ms a call, device
-    kernels a call, the ten longest device operations as text)."""
+def profile_by_name(fn, n):
+    """torch.profiler over n calls of fn -> {device operation: (device ms a
+    call, launches a call)}."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in seen) / 1e3 / n
-    top = sorted(seen, key=lambda e: -e.self_device_time_total)[:10]
-    text = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x{e.count // n}"
-                     for e in top)
-    return busy_ms, sum(e.count for e in seen) / n, text
+    return {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_window(fn, n):
+    """torch.profiler over n calls of fn -> (device busy ms a call, device
+    kernels a call, the ten longest device operations as text)."""
+    ops = profile_by_name(fn, n)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
+    text = "; ".join(f"{k[:60]} {ms:.3f} ms x{count:.0f}" for k, (ms, count) in top)
+    return sum(ms for ms, _ in ops.values()), sum(c for _, c in ops.values()), text
+
+
+# the vmem frame's device operations over the default frame's, by kernel name
+VMEM_GROUPS = (("the ranking's topk", ("mbtopk", "radixSort", "gatherTopK")),
+               ("the forward blend (K7 for K1)", ("blend_fwd_kernel",)),
+               ("K9", ("gather_rows_kernel",)))
+
+
+def vmem_breakdown(default_ops, vmem_ops):
+    """-> ({group: [ms, launches] a frame more under vmem}, [(ms, launches,
+    name)] of the ungrouped operations that differ, largest first)."""
+    groups = {g: [0.0, 0.0] for g, _ in VMEM_GROUPS} | {"the rest": [0.0, 0.0]}
+    rest = []
+    for k in set(default_ops) | set(vmem_ops):
+        a, b = default_ops.get(k, (0.0, 0.0)), vmem_ops.get(k, (0.0, 0.0))
+        dm, dn = b[0] - a[0], b[1] - a[1]
+        g = next((g for g, pats in VMEM_GROUPS if any(p in k for p in pats)), "the rest")
+        groups[g][0] += dm
+        groups[g][1] += dn
+        if g == "the rest" and (abs(dn) > 0.01 or abs(dm) > 0.002):
+            rest.append((dm, dn, k))
+    return groups, sorted(rest, key=lambda r: -abs(r[0]))
 
 
 def micro_step_vs_cpu(raster=None, grad_atol=MICRO_GRAD_ATOL):
@@ -624,19 +763,54 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
         visited, contrib = k1_pairs(rows, order, ranges, TILE)
 
         L = resident_count(variants["vmem"], P)
-        lids = resident_ids(proj, SIZE, SIZE, TILE, L)
-        lids64 = lids.long()
-        ltable = k9.gather_rows(rows, lids)
-        if not torch.equal(ltable, k9.gather_rows_plain(rows, lids)):
-            raise SystemExit("K9 differs from its plain version (index_select)")
-        k9_ms = cuda_ms(lambda: k9.gather_rows(rows, lids), reps=50)
-        k9_plain_ms = cuda_ms(lambda: k9.gather_rows_plain(rows, lids), reps=50)
-        k9_lib_ms = cuda_ms(lambda: torch.index_select(rows, 0, lids64), reps=50)
+        keys, id_bits = resident_keys(proj, SIZE, SIZE, TILE, L)
+        ltable, lids = k9.gather_resident(rows, keys, id_bits)
+        if not torch.equal(lids, resident_ids(proj, SIZE, SIZE, TILE, L)) or not torch.equal(
+                ltable, k9.gather_rows_plain(rows, lids)):
+            raise SystemExit("K9 differs from its plain version (the ranking's ids, index_select)")
+        k9_plain_ms = cuda_ms(lambda: k9.gather_resident_plain(rows, keys, id_bits), reps=50)
+        k9_at = k9_alone(rows, keys, id_bits)
+        k9_ms, k9_lib_ms, k9_floor_ms = (k9_at[L][k] for k in ("ms", "index_select_ms",
+                                                               "floor_ms"))
         k9_bytes = L * k1.ROW * 4 * 2 + L * 4
         k9_bound = k9_bytes / HBM_BYTES_PER_S * 1e3
+        # where K9 runs: behind the ranking (resident_keys, whose last kernel is topk's);
+        # the ranking with the ids decoded (resident_ids) and K9's int32 entry beside it
+        seq_turns = turn_times({
+            "ranking": lambda: resident_keys(proj, SIZE, SIZE, TILE, L),
+            "ranking + K9": lambda: k9.gather_resident(
+                rows, *resident_keys(proj, SIZE, SIZE, TILE, L)),
+            "resident_ids": lambda: resident_ids(proj, SIZE, SIZE, TILE, L),
+            "resident_ids + gather_rows": lambda: k9.gather_rows(
+                rows, resident_ids(proj, SIZE, SIZE, TILE, L))}, cycles=3)
+        k9_seq = {k: statistics.median(v) for k, v in seq_turns.items()}
+        k9_seq_ms = k9_seq["ranking + K9"] - k9_seq["ranking"]
+        # K9's added time in each turn: the ranking's and ranking + K9's i-th times
+        k9_seq_adds = [a - b for a, b in zip(seq_turns["ranking + K9"], seq_turns["ranking"])]
+        k9_seq_spread = {"adds_median": statistics.median(k9_seq_adds),
+                         "adds_spread": least_most(k9_seq_adds),
+                         **{k + " spread": least_most(v) for k, v in seq_turns.items()}}
+        k9_occ = {**k9.occupancy(), "ptxas": ptxas_usage("18gather_rows_kernelILb1E")}
         say(11, f"K9 row gather: L={L} of P={P} (the first two classes of the ubody ladder), "
-                f"equal to index_select; kernel {k9_ms:.4f} ms, plain {k9_plain_ms:.4f} ms, "
-                f"index_select {k9_lib_ms:.4f} ms, bound {k9_bound:.5f} ms ({k9_bytes} B)")
+                f"equal to its plain version; alone, in turns with index_select and the launch "
+                f"floor (medians): " + "; ".join(
+                    f"L={n} kernel {v['ms']:.4f} ms ({v['ms_spread'][0]:.4f}-"
+                    f"{v['ms_spread'][1]:.4f}), index_select {v['index_select_ms']:.4f}, "
+                    f"floor {v['floor_ms']:.4f} ({v['floor_spread'][0]:.4f}-"
+                    f"{v['floor_spread'][1]:.4f}), bound {v['bound_ms']:.5f} ({v['bytes']} B)"
+                    for n, v in k9_at.items())
+                + f"; plain {k9_plain_ms:.4f} ms; {k9_occ['ctas_per_sm']} CTAs an SM, ptxas: "
+                  f"{k9_occ['ptxas']}")
+        say(11, f"K9 in sequence (in turns, medians of 3 rounds, least-most of the 6 turns): "
+                + ", ".join(f"{k} {v:.4f} ms ({min(seq_turns[k]):.4f}-{max(seq_turns[k]):.4f})"
+                            for k, v in k9_seq.items())
+                + f"; K9 adds {k9_seq_ms:.4f} ms behind the ranking (turn by turn: median "
+                  f"{k9_seq_spread['adds_median']:.4f}, {k9_seq_spread['adds_spread'][0]:.4f}-"
+                  f"{k9_seq_spread['adds_spread'][1]:.4f}); the decoded-ids path "
+                  f"adds {k9_seq['resident_ids + gather_rows'] - k9_seq['ranking']:.4f} ms "
+                  f"over the ranking")
+        k9_edge_cases(rows)
+        golden_on_card()
 
         order_r = remap_resident(order, lids, P)
         n_resident_inst = int((order_r >= P).sum())
@@ -708,7 +882,15 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
 
         del packed, stream
 
-    # 11.2 the main path under each setting: 20 frames through render_frame
+    # 11.2 the main path under each setting: 20 frames through render_frame; the default
+    # path's device operations first, which the vmem frame's are held against
+    dpipe = FramePipeline(sc.ehm, sc.faces, refiner, image_size=SIZE, invtanfov=INVTANFOV,
+                          settings=RasterizeSettings(tile=TILE), opacity_threshold=0.0, device=DEV)
+    dav = dpipe.prepare_avatar(sc.avatar)
+    dpipe.render_frame(dav, targets[0])
+    frames_iter = iter(targets[:5])
+    default_ops = profile_by_name(lambda: dpipe.render_frame(dav, next(frames_iter)), 5)
+    del dpipe, dav
     frame_launches, frame_ms = {}, {}
     for name, st in variants.items():
         vpipe = FramePipeline(sc.ehm, sc.faces, refiner, image_size=SIZE, invtanfov=INVTANFOV,
@@ -730,7 +912,8 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
             raise SystemExit(f"{name} frames: launches {counts}, expected {want}")
         frame_launches[name] = counts
         frames_iter = iter(targets[:5])
-        busy_ms, n_dev, _ = profile_window(lambda: vpipe.render_frame(vav, next(frames_iter)), 5)
+        ops = profile_by_name(lambda: vpipe.render_frame(vav, next(frames_iter)), 5)
+        busy_ms, n_dev = sum(v[0] for v in ops.values()), sum(v[1] for v in ops.values())
         for out in frames:
             for k in ("render", "raw"):
                 v = out[k]
@@ -750,6 +933,15 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
                 f"ms/frame ({1e3 / frame_ms[name]:.2f} fps), {busy}; launches {counts}; max abs vs the "
                 f"default path's frames: render {diff['render']:.3g}, raw {diff['raw']:.3g}, "
                 f"invdepth {diff['invdepth']:.3g}")
+        if name == "vmem":
+            groups, rest = vmem_breakdown(default_ops, ops)
+            say(11, f"vmem over the default frame (device operations by name, 5 frames each): "
+                    f"{sum(v[0] for v in groups.values()):+.4f} ms, "
+                    f"{sum(v[1] for v in groups.values()):+.1f} kernels a frame; "
+                    + ", ".join(f"{g} {m:+.4f} ms {n:+.1f}" for g, (m, n) in groups.items())
+                    + "; the rest's largest: " + "; ".join(
+                        f"{k[:70]} {m:+.4f} ms {n:+.1f}" for m, n, k in rest[:10]))
+            vmem_extra = {g: {"ms": m, "launches": n} for g, (m, n) in groups.items()}
         del frames, vpipe, vav
 
     # 11.3 a 64^2 frame under each setting, the GPU against the CPU
@@ -877,8 +1069,11 @@ def raster_variants(sc, avatar, dplan, cfaces, refiner, targets, default_frames,
         {**entry("K8 tile blend, stream", "blend_stream.cu", 1350,
                  frame_launches["stream"]["K8"], err8, k8_ms, k8_plain_ms, k8_bound, k8_by, None),
          **occ["K8"], "over_k1_in_turns": k8_ms / blend_ms["K1"]},
-        entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0, k9_ms,
-              k9_plain_ms, k9_bound, "bytes", k9_lib_ms),
+        {**entry("K9 row gather", "gather_rows.cu", 874, frame_launches["vmem"]["K9"], 0.0,
+                 k9_ms, k9_plain_ms, k9_bound, "bytes", k9_lib_ms),
+         "floor_ms": k9_floor_ms, "in_sequence_ms": k9_seq_ms, "in_sequence": k9_seq,
+         "in_sequence_spread": k9_seq_spread,
+         "sizes": k9_at, **k9_occ, "vmem_frame_extra": vmem_extra},
     ]
 
 
@@ -1016,6 +1211,53 @@ def probe_tools(n_instances, visited, contrib, occ, frame_wide):
                    "with_sum_ms": summed_ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "library_ms": lib_ms, "max_abs_err": abs(got - float(want))})
         del staged
+    # the yardsticks: the rows variant on a permutation of the table (each row from memory
+    # once) and on ids over its first HOT_ROWS rows (L2 hits after the first read), each
+    # checked as the variants are, then timed in turns with the rows variant on the tool's ids
+    n_rows, p_rows = dma[0]["rows"], dma[0]["p_rows"]
+    t = kt2.variant_table(table, "rows")
+    yard_ids = dma_bench.yardstick_ids(n_rows, p_rows, DEV)
+    for key, yid in yard_ids.items():
+        want, _ = kt2.row_copy_plain(t, yid, "rows", n_rows)
+        got, staged = kt2.row_copy(t, yid, "rows", 1, n_rows, check=True)
+        if not abs(float(got) - float(want)) <= T2_RTOL * abs(float(want)):
+            raise SystemExit(f"T2 rows:1 on {key} gives {float(got)}, its plain version "
+                             f"{float(want)}")
+        if not torch.equal(staged, torch.index_select(t, 0, yid.long())):
+            raise SystemExit(f"T2 rows:1 on {key}: staged rows differ from index_select's")
+        del staged
+    yard_ms = in_turns({"rows": lambda: kt2.row_copy(t, idx, "rows", 1, n_rows, total=False),
+                        **{key: (lambda yid=yid: kt2.row_copy(t, yid, "rows", 1, n_rows,
+                                                              total=False))
+                           for key, yid in yard_ids.items()}})
+    staged_bytes = n_rows * t.element_size() * 128
+    yard_tbps = {k: staged_bytes / v / 1e9 for k, v in yard_ms.items()}
+    # a linear model of the random ids' time: each distinct row a read from memory at the
+    # perm rate, each repeat an L2 hit with probability h at the hot rate (hot's own first
+    # reads taken out): h = (perm - rows) / (repeats / n (perm - hits))
+    repeats = n_rows - t2[[v["name"] for v in t2].index("rows")]["distinct_rows"]
+    hot_first = int(torch.unique(yard_ids["hot"]).numel()) / n_rows
+    hits_ms = (yard_ms["hot"] - hot_first * yard_ms["perm"]) / (1 - hot_first)
+    l2_share = (yard_ms["perm"] - yard_ms["rows"]) / (repeats / n_rows
+                                                      * (yard_ms["perm"] - hits_ms))
+    for v in t2:
+        v["yardstick"] = "hot" if v["name"].startswith("contig") else "perm"
+        v["staged_tbps"] = v["rows"] * v["row_bytes"] / v["ms"] / 1e9
+        v["of_bound"] = v["bound_ms"] / v["ms"]
+        v["of_yardstick"] = v["staged_tbps"] / yard_tbps[v["yardstick"]]
+    t2_occ = {"ptxas": ptxas_usage("15row_copy_kernel"),
+              "ctas_per_sm": {"pipelined": kt2.occupancy(True)["ctas_per_sm"],
+                              "one slot": kt2.occupancy(False)["ctas_per_sm"]}}
+    yardsticks = {k: {"ms": yard_ms[k], "staged_tbps": yard_tbps[k]} for k in yard_ms}
+    say(12, f"T2 yardsticks (rows:1, measured, in turns; medians): " + ", ".join(
+            f"{k} {yard_ms[k]:.4f} ms ({yard_tbps[k]:.2f} TB/s staged)" for k in yard_ms)
+            + f"; perm reads every row once (bound {staged_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms), hot {HOT_ROWS} rows; the random ids repeat {repeats} reads, of which the "
+              f"linear model puts {l2_share:.2f} in L2; each variant's staged rate over its "
+              f"yardstick's and its share of its bound: " + ", ".join(
+                f"{v['name']}:{v['banks']} {v['staged_tbps']:.2f} TB/s, {v['of_yardstick']:.3f} "
+                f"of {v['yardstick']}, {v['of_bound']:.3f} of its bound" for v in t2)
+            + f"; {t2_occ['ctas_per_sm']} CTAs an SM, ptxas: {t2_occ['ptxas']}")
     say(12, f"T2 row gather, {dma[0]['rows']} rows, each equal to its plain version (rtol "
             f"{T2_RTOL}) with its staged rows equal to index_select's; the copies alone, then "
             f"with the in-order sum: "
@@ -1024,7 +1266,7 @@ def probe_tools(n_instances, visited, contrib, occ, frame_wide):
                         f"{v['bound_ms']:.4f} by {v['distinct_rows']} distinct rows, "
                         f"index_select {v['library_ms']:.4f}, plain "
                         f"{v['plain_ms']:.1f})" for v in t2))
-    del table, idx2d, idx
+    del table, idx2d, idx, t, yard_ids
 
     # 12.4 T3 against table.sum(0)
     st = sp["stream"]
@@ -1097,7 +1339,7 @@ def probe_tools(n_instances, visited, contrib, occ, frame_wide):
               "tools/dma_bench.py:128", "T2", max(v["max_abs_err"] for v in t2),
               sum(v["ms"] for v in t2), sum(v["plain_ms"] for v in t2),
               sum(v["bound_ms"] for v in t2), "bytes", sum(v["library_ms"] for v in t2),
-              variants=t2),
+              variants=t2, yardsticks=yardsticks, l2_share_of_repeats=l2_share, **t2_occ),
         entry("T3 block stream", "stream_sum.cu", "tools/sort_payload_bench.py:133", "T3", err3,
               t3_ms, t3_plain_ms, t3_bound, "bytes", t3_lib_ms, sorts_ms=sp["sorts"], decision=d),
     ]

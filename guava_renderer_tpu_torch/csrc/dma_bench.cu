@@ -12,24 +12,39 @@
 //                 G/banks rows): the TPU's rows and rowsB<k>
 //   pairs         one bulk copy of rows (idx, idx + 1) for every even g:
 //                 the TPU's rows_pipe_2rows
-// each either one chunk at a time or pipelined (_pipe): two slots, chunk
-// c + 1 in flight while chunk c is read. Rows are 512 bytes (f32) or 256
-// (bf16, the TPU's rows_pipe_bf16).
+// each either one chunk at a time or pipelined (_pipe): kSlots chunks in
+// flight. Rows are 512 bytes (f32) or 256 (bf16, the TPU's rows_pipe_bf16).
 //
-// Bound on the H100: bytes, G rows a chunk read once (the staged rows
-// written once more in check mode): 262,144 rows of 512 B are 134 MB, 40 us
-// at 3.35 TB/s. What the bench measures is how near each copy pattern gets.
+// Bound on the H100: bytes, the distinct rows read once (the staged rows
+// written once more in check mode): the random ids read 165,585 distinct
+// rows of 512 B, 85 MB, 25 us at 3.35 TB/s. What the bench measures is how
+// near each copy pattern gets.
 //
-// Design: the chunks are split into runs, one a CTA, and each CTA walks its
-// run in order, so many CTAs keep copies in flight (the TPU walks them on
-// one core). Warp 0 issues the copies, one lane a row; all threads wait on
-// the barrier parity and, in check mode, copy the staged rows out with
-// 16-byte stores. Each chunk's value goes to vals[c], and a second pass adds
-// them in chunk order in f32, the adds the TPU's sequential grid makes, so
-// the sum equals the plain version's (kernels/rowcopy.py) bit for bit. That
-// chain of 8,192 dependent adds costs ~20 us at the defaults, half the
-// copies' bound: the price of an exact, deterministic result. A caller that
-// times the copies passes no `out`, and the second pass is not launched.
+// Design: a persistent grid of as many CTAs as fit on the card (chip_smoke
+// phase 12 prints them); the chunks are split into runs, one a CTA, walked
+// in order. In each CTA warp 0 produces and warps 1-3 read. The producer
+// copies a chunk into a slot of a ring in dynamic shared memory, one lane a
+// row, each slot with a "full" mbarrier that counts the chunk's bytes
+// (`banks` of them for rows) and an "empty" mbarrier on which each reader
+// warp arrives once it has read the slot; a slot is reused as soon as its
+// empty barrier completes, with no __syncthreads a chunk. Each lane keeps
+// its row ids of the next kSlots chunks in registers, loaded kSlots chunks
+// ahead, so no id load stands between a freed slot and its copies. The
+// variants without _pipe use one slot: one chunk in flight a CTA.
+//
+// Ring depth and grid (PERF.md §6): one producer warp issues a
+// chunk's 32 row copies in ~1.5 us however many slots it may fill, so the
+// copies in flight scale with producer warps, not with slots: at one or two
+// CTAs an SM the pipelined gathers took up to 3.6x as long as on the old
+// grid of 6 CTAs an SM, at 4 or 8 slots as at 2; four producer warps a CTA
+// lifted them, and two slots at 6 CTAs an SM were fastest. In check
+// mode the reader warps copy the staged rows out with 16-byte stores. Each
+// chunk's value goes to vals[c], and a second pass adds them in chunk order
+// in f32, the adds the TPU's sequential grid makes, so the sum equals the
+// plain version's (kernels/rowcopy.py) bit for bit. That chain of 8,192
+// dependent adds costs ~20 us at the defaults, the price of an exact,
+// deterministic result. A caller that times the copies passes no `out`, and
+// the second pass is not launched.
 
 #include <cuda_runtime.h>
 
@@ -43,9 +58,22 @@ using namespace guava_copy;
 
 constexpr int G = 32;              // rows a chunk
 constexpr int kMaxRowBytes = 512;  // f32 rows of 128 lanes
-constexpr int kThreads = 128;
+constexpr int kSlotBytes = G * kMaxRowBytes;
+constexpr int kSlots = 2;          // ring depth of the _pipe variants
+constexpr int kThreads = 128;      // warp 0 copies, warps 1-3 read
+constexpr int kReaders = kThreads / 32 - 1;
 
 enum Source { kContig = 0, kRows = 1, kPairs = 2 };
+
+// An mbarrier whose phase completes after `count` arrivals.
+__device__ __forceinline__ void barrier_init_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
 
 __device__ __forceinline__ float first_value(const unsigned char* row, int row_bytes) {
   if (row_bytes == kMaxRowBytes) return *reinterpret_cast<const float*>(row);
@@ -54,64 +82,89 @@ __device__ __forceinline__ float first_value(const unsigned char* row, int row_b
   return __uint_as_float(bits);
 }
 
+// Dynamic shared memory of a CTA with `slots` slots: the slots, then G full
+// barriers a slot, then one empty barrier a slot.
+constexpr size_t smem_bytes(int slots) {
+  return static_cast<size_t>(slots) * (kSlotBytes + (G + 1) * sizeof(uint64_t));
+}
+static_assert(smem_bytes(kSlots) <= 48 * 1024, "a deeper ring needs cudaFuncSetAttribute");
+
 __global__ void __launch_bounds__(kThreads) row_copy_kernel(
     const unsigned char* __restrict__ table, const int* __restrict__ idx, int row_bytes,
-    int source, int pipelined, int banks, int64_t n_chunks, float* __restrict__ vals,
+    int source, int slots, int banks, int64_t n_chunks, float* __restrict__ vals,
     unsigned char* __restrict__ staged) {
-  __shared__ __align__(128) unsigned char buf[2][G * kMaxRowBytes];
-  __shared__ __align__(8) uint64_t bars[2][G];
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + slots * kSlotBytes);
+  uint64_t* empty = full + slots * G;
 
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
   const int64_t c_begin = n_chunks * blockIdx.x / gridDim.x;
-  const int64_t c_end = n_chunks * (blockIdx.x + 1) / gridDim.x;
+  const int64_t n = n_chunks * (blockIdx.x + 1) / gridDim.x - c_begin;
   const uint32_t chunk_bytes = static_cast<uint32_t>(G * row_bytes);
   if (tid == 0) {
-    for (int s = 0; s < 2; ++s)
-      for (int b = 0; b < banks; ++b) barrier_init(&bars[s][b]);
+    for (int s = 0; s < slots; ++s) {
+      for (int b = 0; b < banks; ++b) barrier_init_count(&full[s * G + b], 1);
+      barrier_init_count(&empty[s], kReaders);
+    }
     fence_barrier_init();
   }
   __syncthreads();
 
-  // warp 0 starts chunk c's copies into slot s
-  auto issue = [&](int64_t c, int s) {
-    if (tid >= 32) return;
-    if (tid == 0) {
-      for (int b = 0; b < banks; ++b) expect_bytes(&bars[s][b], chunk_bytes / banks);
+  if (tid < 32) {
+    // lane g's row ids of the next kSlots chunks
+    int ahead[kSlots];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      ahead[j] = (source != kContig && j < n) ? idx[(c_begin + j) * G + lane] : 0;
     }
-    __syncwarp();
-    unsigned char* dst = buf[s];
-    if (source == kContig) {
-      if (tid == 0) {
-        const int64_t row0 = static_cast<int64_t>((c * 7) % 1024) * G;
-        bulk_copy(dst, table + row0 * row_bytes, chunk_bytes, &bars[s][0]);
+    for (int64_t k0 = 0; k0 < n; k0 += kSlots) {
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        const int64_t k = k0 + j;
+        if (k >= n) break;
+        const int64_t c = c_begin + k;
+        const int row_id = ahead[j];
+        if (source != kContig && k + kSlots < n) ahead[j] = idx[(c + kSlots) * G + lane];
+        const int s = slots == 1 ? 0 : j;
+        // the slot's last chunk, k - slots, has been read
+        if (k >= slots) wait_parity(&empty[s], static_cast<uint32_t>((k / slots - 1) & 1));
+        uint64_t* bar = &full[s * G];
+        unsigned char* dst = smem + s * kSlotBytes;
+        if (lane == 0) {
+          for (int b = 0; b < banks; ++b) expect_bytes(&bar[b], chunk_bytes / banks);
+        }
+        __syncwarp();
+        if (source == kContig) {
+          if (lane == 0) {
+            const int64_t row0 = static_cast<int64_t>((c * 7) % 1024) * G;
+            bulk_copy(dst, table + row0 * row_bytes, chunk_bytes, &bar[0]);
+          }
+        } else if (source == kRows) {
+          bulk_copy(dst + lane * row_bytes, table + static_cast<int64_t>(row_id) * row_bytes,
+                    row_bytes, &bar[lane % banks]);
+        } else if (lane % 2 == 0) {
+          bulk_copy(dst + lane * row_bytes, table + static_cast<int64_t>(row_id) * row_bytes,
+                    2 * row_bytes, &bar[0]);
+        }
       }
-    } else if (source == kRows) {
-      const int64_t row = idx[c * G + tid];
-      bulk_copy(dst + tid * row_bytes, table + row * row_bytes, row_bytes, &bars[s][tid % banks]);
-    } else if (tid % 2 == 0) {
-      const int64_t row = idx[c * G + tid];
-      bulk_copy(dst + tid * row_bytes, table + row * row_bytes, 2 * row_bytes, &bars[s][0]);
     }
-  };
-
-  uint32_t phase[2] = {0, 0};
-  if (pipelined && c_begin < c_end) issue(c_begin, 0);
-  for (int64_t c = c_begin; c < c_end; ++c) {
-    const int s = pipelined ? static_cast<int>((c - c_begin) & 1) : 0;
-    if (pipelined) {
-      if (c + 1 < c_end) issue(c + 1, s ^ 1);  // that slot was freed by the last barrier
-    } else {
-      issue(c, 0);
+  } else {
+    for (int64_t k = 0; k < n; ++k) {
+      const int s = static_cast<int>(k % slots);
+      const uint32_t phase = static_cast<uint32_t>((k / slots) & 1);
+      for (int b = 0; b < banks; ++b) wait_parity(&full[s * G + b], phase);
+      const unsigned char* src = smem + s * kSlotBytes;
+      const int64_t c = c_begin + k;
+      if (tid == 32) vals[c] = first_value(src, row_bytes);
+      if (staged != nullptr) {
+        const uint4* from = reinterpret_cast<const uint4*>(src);
+        uint4* to = reinterpret_cast<uint4*>(staged + c * chunk_bytes);
+        for (uint32_t i = tid - 32; i < chunk_bytes / 16; i += kThreads - 32) to[i] = from[i];
+      }
+      __syncwarp();
+      if (lane == 0) barrier_arrive(&empty[s]);
     }
-    for (int b = 0; b < banks; ++b) wait_parity(&bars[s][b], phase[s]);
-    phase[s] ^= 1;
-    if (tid == 0) vals[c] = first_value(buf[s], row_bytes);
-    if (staged != nullptr) {
-      const uint4* src = reinterpret_cast<const uint4*>(buf[s]);
-      uint4* out = reinterpret_cast<uint4*>(staged + c * chunk_bytes);
-      for (uint32_t i = tid; i < chunk_bytes / 16; i += kThreads) out[i] = src[i];
-    }
-    __syncthreads();  // slot s is read: the next chunk may copy into it
   }
 }
 
@@ -140,6 +193,15 @@ __global__ void __launch_bounds__(kSumThreads) sum_in_order_kernel(
 
 }  // namespace
 
+// Resident CTAs an SM of the pipelined variants (pipelined != 0) or of the
+// others, and their dynamic shared memory a CTA; the wrapper sizes the grid
+// by it.
+extern "C" int guava_row_copy_occupancy(int pipelined, int* ctas, int* smem) {
+  *smem = static_cast<int>(smem_bytes(pipelined ? kSlots : 1));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, row_copy_kernel, kThreads, *smem));
+}
+
 // table (p_rows, row_bytes) f32 or bf16 rows (row_bytes 512 or 256); idx:
 // G * n_chunks row ids (in [0, p_rows), [0, p_rows - 1) for pairs; unread by
 // contig, whose rows (c*7 mod 1024)*G + G must lie in the table); source
@@ -157,8 +219,9 @@ extern "C" int guava_row_copy(const void* table, const int* idx, int row_bytes, 
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_chunks > 0) {
-    row_copy_kernel<<<n_ctas, kThreads, 0, s>>>(
-        static_cast<const unsigned char*>(table), idx, row_bytes, source, pipelined, banks,
+    const int slots = pipelined ? kSlots : 1;
+    row_copy_kernel<<<n_ctas, kThreads, smem_bytes(slots), s>>>(
+        static_cast<const unsigned char*>(table), idx, row_bytes, source, slots, banks,
         n_chunks, vals, static_cast<unsigned char*>(staged));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -71,12 +71,18 @@ SIGNATURES = {
     "guava_blend_stream_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # rows, ids, out, n, stream
     "guava_gather_rows": (_P, _P, _P, _I, _P),
+    # rows, keys, id_bits, out, lids, n, stream
+    "guava_gather_resident": (_P, _P, _I, _P, _P, _I, _P),
+    # &ctas, &smem_bytes: resident CTAs an SM of K9
+    "guava_gather_rows_occupancy": (_P, _P),
     # rows, order, ranges, bg, color, invdepth, final_T, counts, height, width, tile, chunk,
     # exit_every, stage_rows, stream
     "guava_blend_probe": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # table, idx, row_bytes, source, pipelined, banks, n_chunks, n_ctas, vals, staged (or
     # null), out (or null: the copies alone), stream
     "guava_row_copy": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # pipelined, &ctas, &smem_bytes: resident CTAs an SM of T2's kernel
+    "guava_row_copy_occupancy": (_I, _P, _P),
     # table, partials, out, n_rows, n_ctas, stream
     "guava_stream_sum": (_P, _P, _P, _I, _I, _P),
     # src, idx (or null), n_seg, base, elem_bytes, seg_bytes, out_off, out_bytes, out, route,

@@ -20,6 +20,9 @@ without the in-order sum's chain of dependent adds.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import build
@@ -93,6 +96,25 @@ def row_copy_plain(table, idx, name, rows, check=False):
     return out, (table[ids] if check else None)
 
 
+@functools.cache
+def occupancy(pipelined: bool) -> dict:
+    """Resident CTAs an SM of the kernel with the pipelined variants' ring
+    (pipelined) or one slot, and its dynamic shared memory a CTA
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; fixed by the build, so
+    asked once)."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().guava_row_copy_occupancy(int(pipelined), ctypes.addressof(ctas),
+                                                         ctypes.addressof(smem)),
+                "guava_row_copy_occupancy")
+    return {"ctas_per_sm": ctas.value, "smem_bytes": smem.value}
+
+
+def grid_ctas(n_chunks: int, sms: int, ctas_per_sm: int) -> int:
+    """The persistent grid: as many CTAs as are resident at once, at most
+    one a chunk."""
+    return max(1, min(n_chunks, sms * ctas_per_sm))
+
+
 def row_copy(table, idx, name, banks, rows, check=False, total=True):
     """The variant's copies on CUDA tensors (`row_copy_plain` on CPU ones):
     table (p_rows, 128) as `variant_table` gives it, idx (>= rows,) i32 row
@@ -117,7 +139,7 @@ def row_copy(table, idx, name, banks, rows, check=False, total=True):
         err = build.library().guava_row_copy(
             table.data_ptr(), idx.data_ptr(), table.element_size() * 128, source,
             int(pipelined), banks if name == "rows" else 1, n_chunks,
-            max(1, min(n_chunks, 6 * sms)), vals.data_ptr(),
+            grid_ctas(n_chunks, sms, occupancy(pipelined)["ctas_per_sm"]), vals.data_ptr(),
             staged.data_ptr() if check else None, out.data_ptr() if total else None, stream)
     build.check(err, "guava_row_copy")
     launches += 1

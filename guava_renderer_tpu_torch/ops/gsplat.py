@@ -49,7 +49,7 @@ from ..core.cameras import Camera
 from ..kernels import blend as kblend
 from ..kernels.blend import (
     ALPHA_MIN, CHANNELS, GEOM, ROW, blend, blend_bf16, blend_resident, blend_stream)
-from ..kernels.gather_rows import gather_rows
+from ..kernels.gather_rows import decode_ids, gather_resident
 from .gsplat_project import ProjectedGaussians, project_gaussians, tile_rect
 
 # The largest resident table the JAX package accepts (8 MB of its 512-byte
@@ -134,19 +134,26 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
     return ranges.to(torch.int32), order
 
 
-def resident_ids(proj: ProjectedGaussians, width: int, height: int, tile: int,
-                 n_resident: int) -> torch.Tensor:
-    """(L,) i32 ids of the n_resident Gaussians with the largest tile rects:
-    the first L of all P ranked by descending (area + 1) << id_bits | id,
-    a Gaussian that bins nothing counting as area -1, so ties go to the
-    larger id (the JAX package's size-class ranking, `_bin_nopresort`)."""
+def resident_keys(proj: ProjectedGaussians, width: int, height: int, tile: int,
+                  n_resident: int) -> tuple[torch.Tensor, int]:
+    """The ranking of the n_resident Gaussians with the largest tile rects:
+    ((L,) int64 keys, id_bits), the first L of all P keys (area + 1) <<
+    id_bits | id in descending order, a Gaussian that bins nothing counting
+    as area -1, so ties go to the larger id (the JAX package's size-class
+    ranking, `_bin_nopresort`). K9 (`gather_resident`) decodes the ids."""
     counts = _tile_counts(proj, width, height, tile)[-1]
     P = counts.shape[0]
     id_bits = max(1, (P - 1).bit_length())
     ids = torch.arange(P, device=counts.device)
     key = (torch.where(counts > 0, counts + 1, 0) << id_bits) | ids
-    top = torch.topk(key, n_resident).values
-    return (top & ((1 << id_bits) - 1)).to(torch.int32)
+    return torch.topk(key, n_resident).values, id_bits
+
+
+def resident_ids(proj: ProjectedGaussians, width: int, height: int, tile: int,
+                 n_resident: int) -> torch.Tensor:
+    """(L,) i32 ids of the n_resident Gaussians with the largest tile rects,
+    in the order of `resident_keys`."""
+    return decode_ids(*resident_keys(proj, width, height, tile, n_resident))
 
 
 def remap_resident(order: torch.Tensor, lids: torch.Tensor, P: int) -> torch.Tensor:
@@ -278,10 +285,9 @@ def rasterize(
     proj_sg, prep = _project_and_bin(means3d, colors, opacities, scales, quats, cam, settings)
     # the resident table, the remapped ids and the stream carry no gradient
     if settings.vmem_classes:
-        lids = resident_ids(proj_sg, W, H, tile, L)
-        color, invdepth, _ = blend_resident(prep.rows, gather_rows(prep.rows, lids),
-                                            remap_resident(prep.order, lids, P), prep.order,
-                                            prep.ranges, bg, H, W, tile)
+        ltable, lids = gather_resident(prep.rows, *resident_keys(proj_sg, W, H, tile, L))
+        color, invdepth, _ = blend_resident(prep.rows, ltable, remap_resident(prep.order, lids, P),
+                                            prep.order, prep.ranges, bg, H, W, tile)
     else:
         color, invdepth, _ = blend_stream(prep.rows, stream_rows(prep.rows, prep.order),
                                           prep.order, prep.ranges, bg, H, W, tile)

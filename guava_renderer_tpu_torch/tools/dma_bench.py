@@ -46,6 +46,26 @@ def build(rows: int, p_rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return table, torch.as_tensor(idx2d, device=device)
 
 
+# the rows the contig variants read: 1024 chunk starts of G rows, 16.8 MB of f32
+# rows, which the H100's 50 MB L2 holds
+HOT_ROWS = 1024 * G
+
+
+def yardstick_ids(rows: int, p_rows: int, device, seed: int = 1) -> dict[str, torch.Tensor]:
+    """Row ids (rows,) i32 of the two yardsticks that the `rows` variant
+    reads: `perm`, the first `rows` of a seeded permutation of the table's
+    rows (at rows = p_rows every row once: each staged byte comes from
+    memory once), and `hot`, uniform over the first HOT_ROWS rows (the rows
+    stay in L2 after their first read, as the contig variants' do)."""
+    if rows > p_rows:
+        raise ValueError(f"a permutation of {p_rows} rows has no {rows} distinct rows")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(p_rows)[:rows]
+    hot = rng.integers(0, min(HOT_ROWS, p_rows), rows)
+    return {k: torch.as_tensor(v.astype(np.int32), device=device)
+            for k, v in (("perm", perm), ("hot", hot))}
+
+
 def parse_variants(spec: str) -> list[tuple[str, int]]:
     return [(v.split(":")[0], int(v.split(":")[1])) for v in spec.split(",") if v]
 

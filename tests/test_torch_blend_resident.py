@@ -7,7 +7,9 @@ The JAX side runs Pallas in interpret mode (chunk 8) on zero-truncation
 ladders (every cap is the whole tile grid). Its size-class path sorts on the
 top bits of the depth and breaks ties by duplication order, the port by id,
 so the small scenes' depths are spaced (`spaced_scene`). Ranking, remapped
-ids and the row gather are compared exactly; images to atol 1e-4. The
+ids and the row gather (both K9 entries: int32 ids, and the ranking's
+int64 keys that the frame passes) are compared exactly, the gather also on
+its edge cases; images to atol 1e-4. The
 resident path's gradient is held bit for bit against the port's default
 path, whose gradient tests/test_torch_gsplat_grad.py holds against JAX.
 """
@@ -82,6 +84,11 @@ def test_ranking_and_remap_equal_jax():
     ranges, order = tgs.bin_gaussians(proj, SIZE, SIZE, TILE)
     lids = tgs.resident_ids(proj, SIZE, SIZE, TILE, tgs.resident_count(port_settings(), P))
     np.testing.assert_array_equal(lids.numpy(), np.asarray(j_lids))
+    # the frame's route: the ranking's keys into K9, which decodes the same ids
+    rows = torch.as_tensor(np.random.default_rng(3).normal(size=(P, tk.ROW)).astype(np.float32))
+    ltable, klids = tk9.gather_resident(rows, *tgs.resident_keys(proj, SIZE, SIZE, TILE, L))
+    np.testing.assert_array_equal(klids.numpy(), np.asarray(j_lids))
+    assert torch.equal(ltable, rows[klids.long()])
     np.testing.assert_array_equal(ranges.numpy(), np.asarray(j_ranges))
     assert order.shape[0] == n
     np.testing.assert_array_equal(order.numpy(), np.asarray(j_orig)[:n])
@@ -101,6 +108,66 @@ def test_gather_rows_plain_vs_jax():
     got = tk9.gather_rows(torch.tensor(rows), torch.tensor(ids))
     np.testing.assert_array_equal(got.numpy(), want[:, :tk.ROW])
     assert tk9.gather_rows_plain(torch.tensor(rows), torch.tensor(ids)).shape == (n, tk.ROW)
+
+
+# K9's edge cases: (P, ids); the JAX gather_rows takes every case but L = 0
+K9_CASES = {"L=0": (50, []), "L=1": (50, [49]), "repeated ids": (50, [7, 7, 3, 7, 3, 3]),
+            "ids 0 and P-1": (50, [0, 49, 0, 49, 49, 0]),
+            "L=16384": (20000, np.random.default_rng(16).integers(0, 20000, 16384))}
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+def test_gather_rows_edge_cases(case):
+    """Both K9 entries on the CPU equal index_select and, where it takes the
+    case, the JAX gather_rows in interpret mode (its first L rows, first 44
+    columns); the launch counter does not move."""
+    P, ids = K9_CASES[case]
+    rng = np.random.default_rng(10)
+    rows = rng.normal(size=(P, tk.ROW)).astype(np.float32)
+    ids = np.asarray(ids, np.int32)
+    trows, tids = torch.tensor(rows), torch.tensor(ids)
+    before = tk9.launches
+    want = trows.index_select(0, tids.long())
+    got = tk9.gather_rows(trows, tids)
+    id_bits = max(1, (P - 1).bit_length())
+    keys = (torch.arange(ids.shape[0], dtype=torch.int64) << id_bits) | tids.long()
+    table, lids = tk9.gather_resident(trows, keys, id_bits)
+    assert got.shape == (ids.shape[0], tk.ROW) and torch.equal(got, want)
+    assert torch.equal(table, want) and torch.equal(lids, tids)
+    assert tk9.launches == before
+    if ids.shape[0]:
+        jtable = np.zeros((P, 128), np.float32)
+        jtable[:, :tk.ROW] = rows
+        jwant = np.asarray(jax.jit(jgs.gather_rows)(jnp.asarray(jtable), jnp.asarray(ids)))
+        np.testing.assert_array_equal(got.numpy(), jwant[:ids.shape[0], :tk.ROW])
+
+
+def test_gather_resident_is_the_ranking_and_gather_rows():
+    """K9's frame entry on the ranking's keys gives resident_ids and their
+    rows, as gather_rows_plain gathers them."""
+    arrs = spaced_scene(4, P=40)
+    _, tc = make_cams(SIZE)
+    proj = tproject(*_t((arrs[0], arrs[3], arrs[4], arrs[2])), tc)
+    rows = torch.as_tensor(np.random.default_rng(5).normal(size=(40, tk.ROW)).astype(np.float32))
+    keys, id_bits = tgs.resident_keys(proj, SIZE, SIZE, TILE, 12)
+    assert keys.dtype == torch.int64 and keys.shape == (12,) and id_bits == 6
+    table, lids = tk9.gather_resident(rows, keys, id_bits)
+    want_ids = tgs.resident_ids(proj, SIZE, SIZE, TILE, 12)
+    assert torch.equal(lids, want_ids)
+    assert torch.equal(table, tk9.gather_rows_plain(rows, want_ids))
+    assert torch.equal(tk9.decode_ids(keys, id_bits), want_ids)
+
+
+def test_gather_entries_check_their_arguments():
+    rows = torch.zeros((8, tk.ROW))
+    with pytest.raises(ValueError, match="keys must be"):
+        tk9.gather_resident(rows, torch.zeros(3, dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match="id_bits"):
+        tk9.gather_resident(rows, torch.zeros(3, dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="ids must be"):
+        tk9.gather_rows(rows, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="rows must be"):
+        tk9.gather_rows(torch.zeros((8, 43)), torch.zeros(3, dtype=torch.int32))
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,9 @@
 T2 (`kernels/rowcopy.py`): each variant's plain result against the JAX
 tool's Pallas kernel (`tools/dma_bench.py:make_variant`) in interpret mode,
 at rows = 256, on the data its `build()` makes (without its pin_platform):
-the same f32 adds in the same order, so equal.
+the same f32 adds in the same order, so equal; the rows variant also on
+the two yardstick id sets that chip_smoke.py times (`yardstick_ids`), and
+the plain model of which chunks each CTA of the persistent grid walks.
 T3 (`kernels/stream_sum.py`): the plain stream against its Pallas body's
 definition (a sum over rows), in float64 numpy; the payload sorts sorted and
 carrying their payloads. The JAX kernel is defined inside the tool's main()
@@ -76,6 +78,64 @@ def test_row_copy_plain_vs_jax_dma_bench(name, banks):
     else:
         ids = idx
     np.testing.assert_array_equal(staged.float().numpy(), t.float().numpy()[ids.reshape(-1)])
+
+
+@pytest.mark.parametrize("key", ["perm", "hot"])
+def test_row_copy_yardsticks_vs_jax_dma_bench(key):
+    """The rows variant on the yardstick ids (`dma_bench.yardstick_ids`):
+    its plain result against the JAX tool's rows kernel in interpret mode
+    on the same ids, and its staged rows against index_select."""
+    p_rows = 1024
+    table, _ = jax_build(ROWS, p_rows)
+    ids = dma_bench.yardstick_ids(ROWS, p_rows, "cpu")[key]
+    idx2d = np.zeros((ROWS // 128 + 2, 128), np.int32)
+    idx2d.reshape(-1)[:ROWS] = ids.numpy()
+    want = np.asarray(_jax_dma_bench().make_variant("rows", 1, ROWS)(
+        jnp.asarray(idx2d), jnp.asarray(table)))
+    t = krc.variant_table(torch.tensor(table), "rows")
+    got, staged = krc.row_copy(t, torch.tensor(idx2d).reshape(-1), "rows", 1, ROWS, check=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(staged, t.index_select(0, ids.long()))
+
+
+def test_yardstick_ids():
+    """perm: distinct rows of the table (every row at rows = p_rows); hot:
+    rows below HOT_ROWS; the same draws each call."""
+    y = dma_bench.yardstick_ids(4096, 4096, "cpu")
+    assert torch.equal(torch.sort(y["perm"]).values, torch.arange(4096, dtype=torch.int32))
+    big = dma_bench.yardstick_ids(2 * dma_bench.HOT_ROWS, 4 * dma_bench.HOT_ROWS, "cpu")
+    assert int(big["hot"].max()) < dma_bench.HOT_ROWS and int(big["hot"].min()) >= 0
+    assert int(torch.unique(big["perm"]).numel()) == 2 * dma_bench.HOT_ROWS
+    assert all(v.dtype == torch.int32 for v in big.values())
+    assert torch.equal(dma_bench.yardstick_ids(4096, 4096, "cpu")["hot"], y["hot"])
+    with pytest.raises(ValueError, match="distinct"):
+        dma_bench.yardstick_ids(5000, 4096, "cpu")
+
+
+def cta_chunks(n_chunks, n_ctas):
+    """The chunks each CTA of `csrc/dma_bench.cu:row_copy_kernel` walks, in
+    order (its c_begin and n)."""
+    return [range(n_chunks * b // n_ctas, n_chunks * (b + 1) // n_ctas) for b in range(n_ctas)]
+
+
+@pytest.mark.parametrize("n_chunks,n_ctas", [(5, 8), (8, 8), (8192, 792), (100, 7), (1, 1),
+                                             (8191, 1188)])
+def test_row_copy_chunk_walk(n_chunks, n_ctas):
+    """The plain model of the kernel's walk: each CTA a contiguous run, in
+    order; together every chunk exactly once, with fewer, as many and more
+    chunks than CTAs and a count that is no multiple of the CTAs."""
+    runs = cta_chunks(n_chunks, n_ctas)
+    assert len(runs) == n_ctas
+    assert [c for r in runs for c in r] == list(range(n_chunks))
+    sizes = [len(r) for r in runs]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_row_copy_grid():
+    """The persistent grid: the resident CTAs of the card, at most one a chunk."""
+    assert krc.grid_ctas(8192, 132, 6) == 792
+    assert krc.grid_ctas(100, 132, 6) == 100
+    assert krc.grid_ctas(0, 132, 9) == 1
 
 
 @pytest.mark.parametrize("name", ["rows", "rows_pipe_2rows"])
