@@ -68,7 +68,16 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      yardstick's, T3 against table.sum(0) and
      the float64 sum; each T1 probe in turns with one PyTorch call that
      writes the same values and the launch floor (one near-empty kernel),
-     with the bytes each must move.
+     with the bytes each must move;
+ 13. the config-driven runtime at the widths of configs/train/ubody_512.yaml
+     (build_runtime with synthetic assets, init_params seed 0,
+     FramePipeline.from_runtime): one creation from a seeded 518^2 image,
+     then 20 frames under each of four refiner settings (the config as it
+     stands, bf16_refiner, refiner_type simpleunet, image_size 720 refined
+     at 512), with launch counts and ms/frame on the host clock and device
+     busy; the bf16 render against the f32 one; each setting at micro
+     widths on the GPU against the CPU; then `python3 bench_torch.py
+     --frames 20 --repeats 3` in a subprocess, whose JSON line is printed.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -101,6 +110,7 @@ from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
 from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
     INVTANFOV, UBODY_LADDER, make_bench_scene, make_create_scene, make_train_scene)
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
+from guava_renderer_tpu_torch.cli.context import build_runtime, init_params  # noqa: E402
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
     FramePipeline, _batched_params, _unpack_params)
 from guava_renderer_tpu_torch.cli.trainer_loop import run_training  # noqa: E402
@@ -126,7 +136,8 @@ from guava_renderer_tpu_torch.ops.meshraster import (  # noqa: E402
 from guava_renderer_tpu_torch.testing import (  # noqa: E402
     make_micro_pipeline, pad_instances, zbuffer_scenes)
 from guava_renderer_tpu_torch.tools import (  # noqa: E402
-    device_ms, dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
+    device_ms, dma_bench, ee_probe, mosaic_probe, profile_by_name, profile_window,
+    sort_payload_bench)
 from guava_renderer_tpu_torch.tools.dma_bench import HOT_ROWS  # noqa: E402
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from guava_renderer_tpu_torch.train.losses import LossConfig, OptimizationLoss  # noqa: E402
@@ -135,6 +146,7 @@ from guava_renderer_tpu_torch.train.pipeline import (  # noqa: E402
     PipelineStatics, make_loss_fn, make_models)
 from guava_renderer_tpu_torch.train.trainstep import (  # noqa: E402
     make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads)
+from guava_renderer_tpu_torch.utils.config import load_config  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -238,6 +250,29 @@ T1_OFF_ROUTE = ",".join(n for n, at in mosaic_probe.OFFSETS.items()
 T2_RTOL = 1e-6
 T3_RTOL = 1e-5
 T3_F64_RTOL = 2e-6
+# phase 13: the config-driven runtime at the widths of configs/train/ubody_512.yaml under
+# four refiner settings, each a config override; the micro config under the same four
+# (image_size 48 refined at 32 standing for 720 at 512) on the card against the CPU
+TRAIN_CONFIG = ROOT / "configs" / "train" / "ubody_512.yaml"
+MICRO_CONFIG = ROOT / "configs" / "train" / "micro_synthetic.yaml"
+REFINER_OPTIONS = (("f32 StyleUNet-small", {}, {}),
+                   ("bf16_refiner", {"bf16_refiner": True}, {"bf16_refiner": True}),
+                   ("simpleunet", {"refiner_type": "simpleunet"}, {"refiner_type": "simpleunet"}),
+                   # 720 is no multiple of the config's tile 32, which both packages refuse
+                   # (the JAX rasterize asserts it): tile 16 there
+                   ("raster 720, refine 512", {"image_size": 720, "raster": {"tile": 16}},
+                    {"image_size": 48}))
+# the bf16 refiner against the f32 one at full width, and bf16 on the card against the
+# CPU at micro widths: the tolerances of tests/test_torch_refiner_options.py (BF16_ATOL at
+# narrow widths; at full width, where random weights saturate the refiner, the mean
+# difference and the share of outputs over BF16_ATOL)
+BF16_ATOL = 0.03
+FULL_BF16_MEAN, FULL_BF16_SHARE = 0.012, 0.13
+# an avatar created with random weights has large Gaussians: its frames bin 16.9M
+# instances at 512^2 and tile 32, 132.8M at 720^2 and tile 16 (on an H100 80GB HBM3), where
+# the bench scene bins 533,091; keys, order and sort scratch take ~4 GB at this bound
+CONFIG_INSTANCE_BUDGET = 256_000_000
+BENCH_TIMEOUT_S = 600
 
 
 def say(phase, msg):
@@ -622,27 +657,6 @@ def train_split(statics, lpips, state, batch, n):
         with torch.no_grad():
             instances = frame_instances(gs, cam, TILE)
     return acc, instances
-
-
-def profile_by_name(fn, n):
-    """torch.profiler over n calls of fn -> {device operation: (device ms a
-    call, launches a call)}."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
-def profile_window(fn, n):
-    """torch.profiler over n calls of fn -> (device busy ms a call, device
-    kernels a call, the ten longest device operations as text)."""
-    ops = profile_by_name(fn, n)
-    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
-    text = "; ".join(f"{k[:60]} {ms:.3f} ms x{count:.0f}" for k, (ms, count) in top)
-    return sum(ms for ms, _ in ops.values()), sum(c for _, c in ops.values()), text
 
 
 # the vmem frame's device operations over the default frame's, by kernel name
@@ -1345,6 +1359,148 @@ def probe_tools(n_instances, visited, contrib, occ, frame_wide):
     ]
 
 
+def pose_params(n_shape, n_exp, body=0.0):
+    """A target record's params: zero shape and face, body pose `body` on every joint."""
+    return {"shape": np.zeros(n_shape, np.float32),
+            "body_pose": np.full((21, 3), body, np.float32),
+            "flame_shape": np.zeros(n_shape, np.float32), "flame_exp": np.zeros(n_exp, np.float32),
+            "flame_jaw": np.zeros(3, np.float32)}
+
+
+def config_runtime():
+    """Phase 13: build_runtime -> init_params -> FramePipeline.from_runtime at the
+    widths of the training config; one creation (K5), then 20 frames (K1, K2)
+    under each refiner setting; each setting at micro widths on the card against
+    the CPU; then bench_torch.py in a subprocess."""
+    t13 = time.perf_counter()
+    cfg = load_config(str(TRAIN_CONFIG))
+    rt = init_params(build_runtime(cfg, synthetic_assets=True, device=DEV), seed=0)
+    pipe = FramePipeline.from_runtime(rt)
+    n_shape, n_exp = rt.smplx.n_shape, rt.smplx.n_exp
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = 30.0
+    source = {"image": np.random.default_rng(0).uniform(0, 1, (FEAT, FEAT, 3)).astype(np.float32),
+              "w2c": w2c, "params": pose_params(n_shape, n_exp)}
+    targets = [{"params": pose_params(n_shape, n_exp, 0.01 * i), "w2c": w2c}
+               for i in range(N_FRAMES)]
+    k1.launches = k2.launches = k5.launches = 0
+    raw, _ = pipe.infer_avatar(source, prune=False)
+    torch.cuda.synchronize()
+    if k5.launches != k5.LAUNCHES:
+        raise SystemExit(f"[13] creation launched K5 {k5.launches} times, expected {k5.LAUNCHES}")
+    check_avatar(raw, "[13] creation")
+    say(13, f"runtime of {TRAIN_CONFIG.name} (synthetic rig of {rt.num_vertices} vertices, "
+            f"ignored raster knobs {rt.ignored_raster}), init_params seed 0, one creation from a "
+            f"seeded {FEAT}^2 image: K5 launches {k5.launches}")
+
+    renders, refiners = {}, {}
+    for name, over, _ in REFINER_OPTIONS:
+        ort = rt if not over else init_params(
+            build_runtime(cfg.merge({"MODEL": over}), synthetic_assets=True, device=DEV), seed=0)
+        opipe = FramePipeline.from_runtime(ort)
+        avatar = opipe.prepare_avatar(raw)
+        if opipe.plan is None:
+            raise SystemExit(f"[13] {name}: the frames do not take the planned face gather")
+        size = opipe.image_size
+        with torch.no_grad():
+            body, flame = _unpack_params(_batched_params(targets[0]["params"], DEV))
+            gs = deform_avatar(avatar, ort.ehm, opipe.faces, body, flame, plan=opipe.plan,
+                               compact_faces=opipe.cfaces)
+            cam = Camera.from_w2c(torch.as_tensor(w2c, device=DEV), opipe.tanfov, size, size)
+            n_inst = frame_instances(gs, cam, ort.renderer.settings.tile)
+        if n_inst > CONFIG_INSTANCE_BUDGET:
+            raise SystemExit(f"[13] {name}: frame 0 bins {n_inst} instances, over "
+                             f"{CONFIG_INSTANCE_BUDGET}")
+        opipe.render_frame(avatar, targets[0])                     # warm-up
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        outs = opipe.render_frames(avatar, targets, group=4)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        if (k1.launches, k2.launches) != (N_FRAMES, N_FRAMES):
+            raise SystemExit(f"[13] {name}: launches K1 {k1.launches}, K2 {k2.launches} for "
+                             f"{N_FRAMES} frames")
+        for out in outs:
+            v = out["render"]
+            if v.shape != (size, size, 3) or not bool(torch.isfinite(v).all()) \
+                    or float(v.min()) < 0.0 or float(v.max()) > 1.0:
+                raise SystemExit(f"[13] {name}: bad render {tuple(v.shape)}")
+        frames = iter(targets[:5])
+        busy, kernels_a_frame, _ = profile_window(
+            lambda: opipe.render_frame(avatar, next(frames)), 5)
+        renders[name] = torch.stack([o["render"] for o in outs])
+        refiners[name] = opipe.renderer.refine
+        say(13, f"{name}: {size}^2 frames, refiner at {ort.renderer.refiner_size}^2 "
+                f"({ort.renderer.neural_refiner.refiner_type}, dtype "
+                f"{ort.renderer.refiner_dtype or torch.float32}), frame 0 bins {n_inst} "
+                f"instances; {host_ms:.3f} ms/frame host clock, {busy:.3f} ms/frame device busy, "
+                f"{kernels_a_frame:.0f} device kernels a frame; launches K1 {N_FRAMES}, "
+                f"K2 {N_FRAMES}")
+        del ort, opipe, outs
+    # the bf16 refiner against the f32 one at full width on the CPU test's inputs (uniform
+    # [0, 1] features), and their frames: the random weights give the created avatar
+    # colours of ~1e4, its refined pixels saturate, and one near the sigmoid's edge may
+    # flip between 0 and 1 under bf16, so the largest difference is reported, not held
+    rsize = int(cfg.MODEL.styleunet.out_size)
+    feats = torch.rand((1, rsize, rsize, 32), generator=torch.Generator().manual_seed(3)).to(DEV)
+    with torch.no_grad():
+        diff = (refiners["bf16_refiner"](feats) - refiners["f32 StyleUNet-small"](feats)).abs()
+    fdiff = (renders["bf16_refiner"] - renders["f32 StyleUNet-small"]).abs()
+    stats = {what: (float(d.max()), float(d.mean()), float((d > BF16_ATOL).float().mean()))
+             for what, d in (("uniform features", diff), ("frames", fdiff))}
+    for what, (dmax, dmean, share) in stats.items():
+        if not (dmean <= FULL_BF16_MEAN and share <= FULL_BF16_SHARE):
+            raise SystemExit(f"[13] bf16 refiner vs f32 on the {what}: mean abs {dmean}, share "
+                             f"over {BF16_ATOL} {share} (tolerance {FULL_BF16_MEAN}, "
+                             f"{FULL_BF16_SHARE})")
+        say(13, f"bf16 refiner vs f32 on the {what} ({rsize}^2 refiner): mean abs {dmean:.6f}, "
+                f"share over {BF16_ATOL} {share:.6f} (tolerance {FULL_BF16_MEAN}, "
+                f"{FULL_BF16_SHARE}); max abs {dmax:.4f}")
+    del renders, refiners, rt, pipe, raw
+
+    # each setting at micro widths: the card against the CPU
+    micro = load_config(str(MICRO_CONFIG))
+    mw2c = np.array(w2c)
+    mw2c[2, 3] = 6.0
+    mimage = np.random.default_rng(1).uniform(0, 1, (28, 28, 3)).astype(np.float32)
+    for name, _, over in REFINER_OPTIONS:
+        got = {}
+        for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+            mrt = init_params(build_runtime(micro.merge({"MODEL": over}), synthetic_assets=True,
+                                            device=dev), seed=0)
+            mpipe = FramePipeline.from_runtime(mrt)
+            ns, ne = mrt.smplx.n_shape, mrt.smplx.n_exp
+            mav, _ = mpipe.infer_avatar({"image": mimage, "w2c": mw2c,
+                                         "params": pose_params(ns, ne)})
+            out = mpipe.render_frame(mav, {"params": pose_params(ns, ne, 0.03), "w2c": mw2c})
+            got[key] = {k: v.cpu() for k, v in out.items()}
+        err = max(float((got["cpu"][k] - got["gpu"][k]).abs().max()) for k in got["cpu"])
+        tol = BF16_ATOL if over.get("bf16_refiner") else SMALL_CREATE_TOL
+        if not err <= tol:
+            raise SystemExit(f"[13] micro {name}: GPU vs CPU max abs {err} > {tol}")
+        say(13, f"micro {name} ({mpipe.image_size}^2, refiner at "
+                f"{mpipe.renderer.refiner_size}^2): create + frame on the GPU vs the CPU: "
+                f"max abs {err:.3g} (tol {tol})")
+
+    # the bench script, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), "--frames", "20",
+                           "--repeats", "3"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise SystemExit(f"[13] bench_torch.py: rc {proc.returncode}, {len(lines)} stdout lines; "
+                         f"stderr tail: {proc.stderr[-3000:]}")
+    rec = json.loads(lines[0])
+    if not rec["value"] > 0:
+        raise SystemExit(f"[13] bench_torch.py measured {rec['value']} fps")
+    say(13, f"bench_torch.py --frames 20 --repeats 3: rc 0 in {time.perf_counter() - t0:.1f} s, "
+            f"{rec['value']:.3f} fps; its line follows")
+    print(lines[0], flush=True)
+    return time.perf_counter() - t13
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -2045,6 +2201,9 @@ def main():
     t12 = time.perf_counter()
     probe_kernels = probe_tools(N, visited, contrib, occ, frame_wide)
     say(12, f"phase 12 in {time.perf_counter() - t12:.1f} s")
+
+    # ---- 13. the config-driven runtime and the bench script ----
+    say(13, f"phase 13 in {config_runtime():.1f} s on {smi}")
 
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",

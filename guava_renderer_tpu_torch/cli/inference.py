@@ -4,10 +4,14 @@
 Creation is: EHM forward -> mesh z-buffer visibility (kernel K5) ->
 DINO+DPT encoder -> vertex and UV branches -> prune -> face-sort plan.
 A frame is: EHM forward -> deform (planned face gather, kernel K2) ->
-project -> bin -> tile blend (kernel K1) -> StyleUNet-small refiner.
+project -> bin -> tile blend (kernel K1) -> refiner (StyleUNet-small by
+default; the renderer's options choose SimpleUNet, another refiner size and
+a bf16 refiner).
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -67,19 +71,30 @@ class FramePipeline:
     (U, U))` live on `device`. Targets are records {"params": {key:
     unbatched array}, "w2c": (4, 4)}; a source record adds "image"
     (Hf, Wf, 3) in [0, 1].
+
+    `refiner_size` and `refiner_dtype` are the renderer's options
+    (`avatar/renderer.py:GaussianRenderer`). With `refiner_dtype` the
+    pipeline refines with a copy of `refiner` cast to that dtype, where the
+    JAX pipeline casts the refiner's parameters (float32 parameters would
+    promote a bf16 input back to float32 there, and raise here); the
+    caller's refiner stays float32.
     """
 
     def __init__(self, ehm: EhmModel, faces, refiner: NeuralRefiner, *,
                  inferer: UbodyGaussianInferer | None = None, uv_tables=None,
                  image_size: int = 512, invtanfov: float = 24.0,
                  settings: RasterizeSettings = RasterizeSettings(tile=32),
-                 opacity_threshold: float = 0.001, device="cuda"):
+                 opacity_threshold: float = 0.001, refiner_size: int | None = None,
+                 refiner_dtype: torch.dtype | None = None, device="cuda"):
         self.device = resolve_device(device)
         if (inferer is None) != (uv_tables is None):
             raise ValueError("creation needs both the inferer and the UV tables")
         self.ehm = ehm
         self.faces = torch.as_tensor(faces, device=self.device)
-        self.renderer = GaussianRenderer(refiner, settings).to(self.device).eval()
+        if refiner_dtype is not None:
+            refiner = copy.deepcopy(refiner).to(refiner_dtype)
+        self.renderer = GaussianRenderer(refiner, settings, refiner_size,
+                                         refiner_dtype).to(self.device).eval()
         self.inferer = None if inferer is None else inferer.to(self.device).eval()
         self.uv_tables = None if uv_tables is None else tuple(
             torch.as_tensor(t, device=self.device) for t in uv_tables)
@@ -89,6 +104,22 @@ class FramePipeline:
         self.opacity_threshold = opacity_threshold
         self.plan = None
         self.cfaces = None
+
+    @classmethod
+    def from_runtime(cls, rt) -> "FramePipeline":
+        """The pipeline of a config-driven runtime (`cli/context.py:Runtime`):
+        its EHM, faces, UV tables, modules and raster settings, its
+        image_size, invtanfov and opacity_threshold, and the renderer's
+        refiner options (counterpart of the JAX `FramePipeline(rt, params)`)."""
+        m, st = rt.cfg.MODEL, rt.statics
+        return cls(
+            rt.ehm, st.faces, st.renderer.neural_refiner,
+            inferer=st.inferer, uv_tables=(st.uvmap_f_idx, st.uvmap_f_bary, st.uvmap_mask),
+            image_size=int(m.image_size), invtanfov=float(m.invtanfov),
+            settings=st.renderer.settings,
+            opacity_threshold=float(m.get("opacity_threshold", 0.001)),
+            refiner_size=st.renderer.refiner_size, refiner_dtype=st.renderer.refiner_dtype,
+            device=rt.device)
 
     def prepare_avatar(self, avatar: GaussianAvatar) -> GaussianAvatar:
         """Prune, then (when the UV count allows it) build the face-sort

@@ -4,10 +4,9 @@ Every function takes the JAX objects with their leaves already turned into
 numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, x)`) and reads
 NamedTuple fields by name, so this module needs nothing of JAX.
 
-A released GUAVA `.pt` reaches the port through the JAX package's
-`train/weights.py:convert_guava_state` followed by
-`refiner_state_dict_from_flax` / `inferer_state_dict_from_flax`: the port's
-modules carry the flax names, so the mapping is a per-leaf transpose.
+The port's modules carry the flax names, so the mapping is a per-leaf
+transpose; `train/weights.py` composes it with its own copy of the GUAVA
+name maps to read a released GUAVA `.pt` straight into the port.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """StyleUNet: a UNet encoder + StyleGAN2-CSFT generator (counterpart of
-`guava_renderer_tpu/models/styleunet.py:StyleUNet`, in_size == out_size).
+`guava_renderer_tpu/models/styleunet.py:StyleUNet`, in_size == out_size),
+and SimpleUNet, the refiner family without the style path.
 
 A bilinear ResBlock UNet produces a style code (4x4 bottleneck -> linear,
 optionally fused with an extra style vector) and per-scale SFT scale/shift
@@ -189,6 +190,51 @@ class StyleUNet(nn.Module):
             conditions.append(getattr(self, f"cond_shift{li}b")(leaky_relu(ab[:, ch:])))
         image = self.generator(style, conditions)
         return torch.sigmoid(image) if self.activation else image
+
+
+class SimpleUNet(nn.Module):
+    """Bilinear ResBlock UNet with a 1x1 RGB head and no style path (counterpart
+    of the JAX `SimpleUNet`, ref: styleunet.py:9-84). Input/output NCHW; an
+    input smaller than `out_size` is resized up first."""
+
+    def __init__(self, in_size, out_size, in_dim, out_dim, channel_scale=1.0):
+        super().__init__()
+        cs = channel_scale
+        self.out_size = out_size
+        log_size = int(math.log2(out_size))
+        if in_size <= out_size:
+            self.first = conv(in_dim, _chan(out_size, cs), 1)
+        else:
+            self.first = conv(in_dim, _chan(in_size, cs), 1)
+            self.first_down = ResBlock(_chan(in_size, cs), _chan(out_size, cs), "down")
+        prev = _chan(out_size, cs)
+        self.n_levels = log_size - 2
+        for li, res in enumerate(range(log_size, 2, -1)):
+            ch = _chan(2 ** (res - 1), cs)
+            self.add_module(f"down{li}", ResBlock(prev, ch, "down"))
+            prev = ch
+        self.final_conv = conv(prev, _chan(4, cs), 3)
+        prev = _chan(4, cs)
+        for li, res in enumerate(range(3, log_size + 1)):
+            ch = _chan(2 ** res, cs)
+            self.add_module(f"up{li}", ResBlock(prev, ch, "up"))
+            prev = ch
+        self.to_rgb = conv(prev, out_dim, 1)
+
+    def forward(self, x):
+        if x.shape[-2] < self.out_size:
+            x = resize_bilinear(x, (self.out_size, self.out_size))
+        feat = leaky_relu(self.first(x))
+        if hasattr(self, "first_down"):
+            feat = self.first_down(feat)
+        skips = []
+        for li in range(self.n_levels):
+            feat = getattr(self, f"down{li}")(feat)
+            skips.insert(0, feat)
+        feat = leaky_relu(self.final_conv(feat))
+        for li in range(self.n_levels):
+            feat = getattr(self, f"up{li}")(feat + skips[li])
+        return self.to_rgb(feat)
 
 
 @torch.no_grad()

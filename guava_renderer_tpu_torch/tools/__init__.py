@@ -56,5 +56,26 @@ def device_ms(fn, device: torch.device, iters: int, warmup: int = 2) -> float | 
     return statistics.median(times)
 
 
+def profile_by_name(fn, n: int) -> dict:
+    """torch.profiler over n calls of fn -> {device operation: (device ms a
+    call, launches a call)}."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_window(fn, n: int) -> tuple[float, float, str]:
+    """torch.profiler over n calls of fn -> (device busy ms a call, device
+    kernels a call, the ten longest device operations as text)."""
+    ops = profile_by_name(fn, n)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
+    text = "; ".join(f"{k[:60]} {ms:.3f} ms x{count:.0f}" for k, (ms, count) in top)
+    return sum(ms for ms, _ in ops.values()), sum(c for _, c in ops.values()), text
+
+
 def fmt_ms(ms: float | None) -> str:
     return "not measured (cpu)" if ms is None else f"{ms:.4f} ms"

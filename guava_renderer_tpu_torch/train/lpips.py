@@ -14,7 +14,9 @@ weights are frozen; the distance is differentiable in its inputs.
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -117,4 +119,42 @@ def init_lpips_(module: LPIPS, generator: torch.Generator) -> LPIPS:
             p.zero_()
         else:
             p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(p[0].numel()))
+    return module
+
+
+def lpips_state_dict(torch_state: dict) -> dict[str, torch.Tensor]:
+    """A torch LPIPS state_dict (a torchvision-style backbone and the `lin`
+    heads) -> this module's names (counterpart of the JAX
+    `train/lpips.py:load_torch_state`; the layouts are torch's on both
+    sides). Backbone convolutions are numbered by the first number in their
+    key, the heads likewise."""
+    def layer_index(key: str) -> int:
+        nums = re.findall(r"\d+", key)
+        return int(nums[0]) if nums else 0
+
+    def tensor(x):
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+
+    out = {}
+    conv_keys = sorted((k for k in torch_state
+                        if "lin" not in k and k.endswith("weight")
+                        and np.ndim(torch_state[k]) == 4), key=layer_index)
+    for i, k in enumerate(conv_keys):
+        out[f"backbone.conv{i}.weight"] = tensor(torch_state[k])
+        bk = k[:-len("weight")] + "bias"
+        if bk in torch_state:
+            out[f"backbone.conv{i}.bias"] = tensor(torch_state[bk])
+    lin_keys = sorted((k for k in torch_state if "lin" in k and k.endswith("weight")),
+                      key=layer_index)
+    for i, k in enumerate(lin_keys):
+        out[f"lin{i}.weight"] = tensor(torch_state[k])
+    return out
+
+
+def load_torch_state(module: LPIPS, torch_state: dict) -> LPIPS:
+    """Load a torch LPIPS state_dict into `module` in place. Entries the state
+    dict lacks keep their values; a stray or misshapen one raises."""
+    from .weights import merge_params
+
+    module.load_state_dict(merge_params(module.state_dict(), lpips_state_dict(torch_state)))
     return module

@@ -8,7 +8,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "guava_renderer_tpu")
-PORT_FILES = sorted((ROOT / "guava_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# absent on the card: the port reads configs with its own reader and
+# converted weights with torch.load
+ABSENT_ON_CARD = ("yaml", "msgpack")
+PORT_FILES = sorted((ROOT / "guava_renderer_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -23,6 +27,13 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax(path):
     bad = [m for m in _imported_modules(path)
            if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_absent_on_the_card(path):
+    bad = [m for m in _imported_modules(path)
+           if any(m == f or m.startswith(f + ".") for f in ABSENT_ON_CARD)]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -46,6 +57,11 @@ def _entry_points():
         avatar_from_numpy, inferer_from_flax, lpips_from_flax)
     from guava_renderer_tpu_torch.tools import (
         dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
+    from guava_renderer_tpu_torch.cli.context import build_runtime
+    from guava_renderer_tpu_torch.utils.config import load_config
+    import bench_torch
+
+    micro = str(ROOT / "configs" / "train" / "micro_synthetic.yaml")
 
     return {
         "make_bench_scene": lambda: make_bench_scene(64, 64, 21, 7),
@@ -64,6 +80,8 @@ def _entry_points():
         "tools.dma_bench": lambda: dma_bench.main([]),
         "tools.sort_payload_bench": lambda: sort_payload_bench.main([]),
         "tools.mosaic_probe": lambda: mosaic_probe.main([]),
+        "build_runtime": lambda: build_runtime(load_config(micro), synthetic_assets=True),
+        "bench_torch": lambda: bench_torch.main([]),
     }
 
 
@@ -72,7 +90,8 @@ def _entry_points():
                                   "avatar_from_numpy", "inferer_from_flax", "make_train_scene",
                                   "make_micro_pipeline", "make_tiny_pipeline",
                                   "lpips_from_flax", "tools.ee_probe", "tools.dma_bench",
-                                  "tools.sort_payload_bench", "tools.mosaic_probe"])
+                                  "tools.sort_payload_bench", "tools.mosaic_probe",
+                                  "build_runtime", "bench_torch"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""
