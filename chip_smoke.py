@@ -32,7 +32,7 @@ Phases (one line each, then a JSON line of the kernels, then a last line
   7. create then render at 64^2 and narrow widths, on the GPU against the
      CPU;
   8. the training step at full width: 3 warm-up and 5 timed steps of batch 1
-     through `run_training` (creation, deform, 32-channel rasterization
+     through `train_on_batches` (creation, deform, 32-channel rasterization
      forward and backward, refiner, LPIPS loss, Adam over the inferer and
      the refiner), a checkpoint restored, one accumulated step of batch 2,
      a per-stage split and a profiler window over one step;
@@ -77,13 +77,37 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      at 512), with launch counts and ms/frame on the host clock and device
      busy; the bf16 render against the f32 one; each setting at micro
      widths on the GPU against the CPU; then `python3 bench_torch.py
-     --frames 20 --repeats 3` in a subprocess, whose JSON line is printed.
+     --frames 20 --repeats 3` in a subprocess, whose JSON line is printed;
+ 14. the data layer and the config-driven trainer: the record store and the
+     image codec built with g++ (the store's native backend; the codec's
+     files and decodes byte-equal to the CPU build's); `run_training` on
+     micro_synthetic.yaml for 2 iterations on the card and on the CPU from
+     one port checkpoint at the config's learning rate (loader batches
+     bit-equal, losses and validation PSNR and SSIM within MICRO_LOSS_RTOL);
+     the teacher tool at teacher512_synthetic.yaml
+     (2 videos x 8 frames at 512^2); two steps of one sample from the
+     flax-scale init; then `python -m guava_renderer_tpu_torch.cli.train`
+     in a subprocess at those widths (batch 6 by per-sample accumulation,
+     remat) from a port checkpoint of a gain-0.5 init: 1 warm-up, 1
+     profiled (a torch.profiler window) and 3 timed iterations, validation,
+     checkpoints and a visual grid; then a resume from `latest`; then a
+     witness for the run's local_xyz regulariser: the run's iterations but
+     its last replayed in this process from the basemodel, the term on each
+     of the run's batches (in the loader's order) from the basemodel's, the
+     replay's and `latest`'s weights on the card, and the largest
+     recomputed from the CPU's inputs by the CPU's inferer in float32 and
+     float64 and by the card's (within WITNESS_FACTOR of the CPU's float32
+     error from float64). It prints ms/step, the loader's wait a step, the
+     loader's ms a batch alone, the H2D ms of a pinned batch, device busy
+     and the idle share, and the K1, K3 and K5 launches a step.
 Needs a CUDA device; run from the repository root.
 """
 
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -113,8 +137,14 @@ from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
 from guava_renderer_tpu_torch.cli.context import build_runtime, init_params  # noqa: E402
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
     FramePipeline, _batched_params, _unpack_params)
-from guava_renderer_tpu_torch.cli.trainer_loop import run_training  # noqa: E402
+from guava_renderer_tpu_torch.cli import trainer_loop  # noqa: E402
+from guava_renderer_tpu_torch.cli.trainer_loop import train_on_batches  # noqa: E402
 from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
+from guava_renderer_tpu_torch.data import codec  # noqa: E402
+from guava_renderer_tpu_torch.data.loader import PrefetchLoader, endless, to_device  # noqa: E402
+from guava_renderer_tpu_torch.data.store import RecordStore, RecordStoreWriter  # noqa: E402
+from guava_renderer_tpu_torch.data.synthetic import write_synthetic_dataset  # noqa: E402
+from guava_renderer_tpu_torch.data.tracked import build_dataset  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
 from guava_renderer_tpu_torch.kernels import copy_probe as kt1  # noqa: E402
@@ -138,15 +168,18 @@ from guava_renderer_tpu_torch.testing import (  # noqa: E402
 from guava_renderer_tpu_torch.tools import (  # noqa: E402
     device_ms, dma_bench, ee_probe, mosaic_probe, profile_by_name, profile_window,
     sort_payload_bench)
+from guava_renderer_tpu_torch.native import lib_path  # noqa: E402
 from guava_renderer_tpu_torch.tools.dma_bench import HOT_ROWS  # noqa: E402
+from guava_renderer_tpu_torch.tools.make_teacher_dataset import make_teacher_dataset  # noqa: E402
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from guava_renderer_tpu_torch.train.losses import LossConfig, OptimizationLoss  # noqa: E402
 from guava_renderer_tpu_torch.train.lpips import LPIPS, init_lpips_  # noqa: E402
 from guava_renderer_tpu_torch.train.pipeline import (  # noqa: E402
     PipelineStatics, make_loss_fn, make_models)
 from guava_renderer_tpu_torch.train.trainstep import (  # noqa: E402
-    make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads)
+    make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads, split_batch)
 from guava_renderer_tpu_torch.utils.config import load_config  # noqa: E402
+from guava_renderer_tpu_torch.utils.logging_utils import TRACE_FILE  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -273,6 +306,34 @@ FULL_BF16_MEAN, FULL_BF16_SHARE = 0.012, 0.13
 # the bench scene bins 533,091; keys, order and sort scratch take ~4 GB at this bound
 CONFIG_INSTANCE_BUDGET = 256_000_000
 BENCH_TIMEOUT_S = 600
+# phase 14: the data layer and the config-driven trainer. The codec's files and pixels
+# on a fixed image (`codec_image`), as the CPU build gives them (SHA-256; the JPEG files
+# are the bytes OpenCV writes there): the card machine's g++ build must give the same
+CODEC_SHA = {
+    "jpeg q95": "3a482e2da98f996e0081fc0d4ad921eb0b5b8be6ba0c1c516c7662ca1d28d43b",
+    "jpeg q95 decoded": "7d6f602e7b2157f538c61b59c159a51d8e7dc1df79e6c702c2cf6df433c4d04c",
+    "jpeg q98 gray": "f7e89da9e8519516859299da5a492a46d8aad73a5e5ddf6c1dcee6cc9c57dbd3",
+    "jpeg q98 gray decoded": "96f269634a1a49f747f23b12a4060339d102aa6451065d3f21c711b055b4adc8",
+}
+TEACHER_CONFIG = ROOT / "configs" / "train" / "teacher512_synthetic.yaml"
+TEACHER_VIDEOS, TEACHER_FRAMES = 2, 8      # 12 train and 4 validation frames
+TEACHER_SEED = 7
+P14_ITERS = 5                  # 1 warm-up, 1 profiled and 3 timed iterations of 6 samples
+P14_WARMUP = 1                 # the profiled iteration is the next (train_on_batches)
+# the witness's local_xyz term in float32 on the card and on the CPU, each against the
+# CPU's float64 inferer: the card's error at most this many times the CPU's (floored at
+# float32's unit roundoff of the term). TF32's roundoff is 2^13 times float32's.
+WITNESS_FACTOR = 100
+TRAIN_TIMEOUT_S = 600
+# runs `python -m guava_renderer_tpu_torch.cli.train` with its arguments, and prints the
+# process's K1, K3 and K5 launches at exit
+TRAIN_WRAPPER = (
+    "import atexit, json, runpy\n"
+    "from guava_renderer_tpu_torch.kernels import blend as k1, meshraster as k5\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': k1.launches, "
+    "'K3': k1.bwd_launches, 'K5': k5.launches}), flush=True))\n"
+    "runpy.run_module('guava_renderer_tpu_torch.cli.train', run_name='__main__', "
+    "alter_sys=True)\n")
 
 
 def say(phase, msg):
@@ -1501,6 +1562,560 @@ def config_runtime():
     return time.perf_counter() - t13
 
 
+def codec_image():
+    """A fixed (97, 131, 3) uint8 image from a formula (no random draws, so every
+    numpy gives it): gradients with a fine checker and a ramp of stripes."""
+    y, x = np.mgrid[0:97, 0:131]
+    img = np.stack([(x + 2 * y) % 256, (x * y // 40) % 256,
+                    200 - x + ((x // 3 + y // 3) % 2) * 12], axis=-1)
+    return img.astype(np.uint8)
+
+
+def codec_digests():
+    """{name: SHA-256} of the codec's files and decodes of `codec_image`."""
+    import hashlib
+
+    img = codec_image()
+    j95 = codec.encode_jpeg(img, 95)
+    j98g = codec.encode_jpeg(img[..., 1], 98)
+    parts = {"jpeg q95": j95, "jpeg q95 decoded": codec.decode_jpeg(j95).tobytes(),
+             "jpeg q98 gray": j98g, "jpeg q98 gray decoded": codec.decode_jpeg(j98g).tobytes()}
+    return {k: hashlib.sha256(v).hexdigest() for k, v in parts.items()}
+
+
+def cfg_size(path):
+    return int(load_config(str(path)).MODEL.image_size)
+
+
+def trace_busy(path):
+    """A torch.profiler Chrome trace -> (device busy ms: the union of its kernel,
+    memcpy and memset intervals; the window in ms from its first to its last event)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    return busy / 1e3, (hi - lo) / 1e3
+
+
+def run_train_cli(args, env, timeout=TRAIN_TIMEOUT_S):
+    """`python -m guava_renderer_tpu_torch.cli.train ARGS` (through TRAIN_WRAPPER) ->
+    (its log lines, its K1/K3/K5 launches); exits on a non-zero return code."""
+    proc = subprocess.run([sys.executable, "-c", TRAIN_WRAPPER, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    out = proc.stdout.splitlines() + proc.stderr.splitlines()
+    if proc.returncode != 0:
+        raise SystemExit(f"[14] cli.train {' '.join(args)}: rc {proc.returncode}; tail:\n"
+                         + "\n".join(out[-40:]))
+    launches = [json.loads(ln[len("LAUNCHES "):]) for ln in proc.stdout.splitlines()
+                if ln.startswith("LAUNCHES ")]
+    return out, launches[-1]
+
+
+ITER_LINE = re.compile(r"iter (\d+): (.*) \(([\d.]+) it/s; step ([\d.]+) ms, batch wait ([\d.]+) ms\)")
+VAL_LINE = re.compile(r"validation @(\d+): psnr=(\S+) ssim=(\S+)")
+
+
+def parse_train_log(lines):
+    """-> ({iteration: (metrics, step ms, wait ms)}, [(iteration, psnr, ssim)])."""
+    iters, vals = {}, []
+    for ln in lines:
+        m = ITER_LINE.search(ln)
+        if m:
+            metrics = {k: float(v) for k, v in (kv.split("=") for kv in m.group(2).split())}
+            iters[int(m.group(1))] = (metrics, float(m.group(4)), float(m.group(5)))
+        m = VAL_LINE.search(ln)
+        if m:
+            vals.append((int(m.group(1)), float(m.group(2)), float(m.group(3))))
+    return iters, vals
+
+
+def micro_trainer_gpu_vs_cpu(work):
+    """2 iterations of the config-driven run_training on micro_synthetic.yaml, on the
+    card and on the CPU from one port checkpoint -> {"gpu", "cpu"}: each run's losses,
+    loader batches (on the CPU), validations and (the card's) launches."""
+    data = str(work / "micro_ds")
+    if not os.path.isdir(data):
+        write_synthetic_dataset(data, n_videos=1, n_frames=4, image_size=48, n_shape=8, n_exp=4)
+    cfg = load_config(str(MICRO_CONFIG), {"DATASET": {"data_path": data},
+                                          "TRAIN": {"check_interval": 2}})
+    rt = init_params(build_runtime(cfg, synthetic_assets=True, device="cpu"), seed=0)
+    base = CheckpointManager(str(work / "micro_base")).save_named(
+        "init", make_train_state(rt.model, learning_rate=float(cfg.OPTIMIZE.learning_rate)), 0)
+    del rt
+    seen = {}
+    real_loss_fn, real_validation = trainer_loop.make_loss_fn, trainer_loop.run_validation
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+        rec = seen[key] = {"losses": [], "batches": [], "val": []}
+
+        def recording_loss_fn(*a, rec=rec, **kw):
+            fn = real_loss_fn(*a, **kw)
+
+            def wrapped(batch, iteration):
+                loss, metrics = fn(batch, iteration)
+                rec["losses"].append(float(loss.detach()))
+                rec["batches"].append({k: v.cpu() for k, v in flat_tree(batch).items()})
+                return loss, metrics
+            return wrapped
+
+        def recording_validation(eval_fn, batches, rec=rec):
+            rec["val"].append(real_validation(eval_fn, batches))
+            return rec["val"][-1]
+
+        trainer_loop.make_loss_fn = recording_loss_fn
+        trainer_loop.run_validation = recording_validation
+        try:
+            if key == "gpu":
+                k1.launches = k1.bwd_launches = k5.launches = 0
+            rt = build_runtime(cfg, synthetic_assets=True, device=dev)
+            trainer_loop.run_training(rt, build_dataset(cfg, "train"),
+                                      build_dataset(cfg, "valid"),
+                                      str(work / f"micro_{key}"), basemodel=base, max_iters=2)
+            if key == "gpu":
+                torch.cuda.synchronize()
+                rec["launches"] = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
+        finally:
+            trainer_loop.make_loss_fn, trainer_loop.run_validation = real_loss_fn, real_validation
+        del rt
+    return seen
+
+
+def micro_check(seen):
+    """Phase 14's micro comparison: the loader batches bit-equal, the losses and the
+    validation PSNR and SSIM within MICRO_LOSS_RTOL, the card's launches. -> the worst
+    relative differences of the losses, the PSNR and the SSIM."""
+    g, c = seen["gpu"], seen["cpu"]
+    same_batches = len(g["batches"]) == len(c["batches"]) == 2 and all(
+        a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(g["batches"], c["batches"]))
+    if not same_batches:
+        raise SystemExit("[14] micro: the card's loader batches differ from the CPU's")
+    if not all(math.isfinite(v) for v in g["losses"] + c["losses"]):
+        raise SystemExit(f"[14] micro: losses {g['losses']} / {c['losses']}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+    psnr_err, ssim_err = (abs(g["val"][-1][k] - c["val"][-1][k]) / abs(c["val"][-1][k])
+                          for k in ("psnr", "ssim"))
+    if not max(loss_err, psnr_err, ssim_err) <= MICRO_LOSS_RTOL:
+        raise SystemExit(f"[14] micro GPU vs CPU: losses {g['losses']} vs {c['losses']}, "
+                         f"validation {g['val'][-1]} vs {c['val'][-1]}")
+    # a step of batch 2: two K1 and two K3 launches (one an item), one K1 a validation item
+    want = {"K1": 2 * 2 + 2, "K3": 2 * 2, "K5": (2 * 2 + 2) * k5.LAUNCHES}
+    if g["launches"] != want:
+        raise SystemExit(f"[14] micro on the card: launches {g['launches']}, expected {want}")
+    return loss_err, psnr_err, ssim_err
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def data_and_trainer():
+    """Phase 14: the native store and codec built on the card's host; the
+    config-driven trainer at micro widths on the card against the CPU; the teacher
+    tool and `python -m guava_renderer_tpu_torch.cli.train` at the widths of
+    teacher512_synthetic.yaml, then a resume. -> (seconds, K1/K3/K5 launches)."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="p14_", dir=ROOT / "build"))
+    try:
+        return phase14(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase14(work):
+    t14 = time.perf_counter()
+    launches = {"K1": 0, "K3": 0, "K5": 0}
+
+    # -- 1. the host libraries: built here, held to the CPU build's bytes
+    libs = [Path(lib_path(n)).name for n in ("recordstore", "imagecodec")]
+    store_path = str(work / "probe.grv")
+    with RecordStoreWriter(store_path) as w:
+        w.put("a", b"x" * 5)
+        w.put("big", bytes(range(256)) * 8192)
+    st = RecordStore(store_path)
+    if st.backend != "native" or st.get("a") != b"x" * 5 or len(st.get("big")) != 2 ** 21:
+        raise SystemExit(f"[14] record store: backend {st.backend}")
+    st.close()
+    digests = codec_digests()
+    if digests != CODEC_SHA:
+        raise SystemExit(f"[14] codec bytes differ from the CPU build's: {digests}")
+    img = codec_image()
+    png_ok = all(np.array_equal(codec.decode_png(codec.encode_png(a)), a)
+                 for a in (img, img[..., 0], np.concatenate([img, img[..., :1]], axis=-1)))
+    jpeg_err = float(np.abs(codec.decode_jpeg(codec.encode_jpeg(img, 95)).astype(int)
+                            - img).mean())
+    if not png_ok or not jpeg_err < 10:
+        raise SystemExit(f"[14] codec round trip: PNG exact {png_ok}, JPEG mean abs {jpeg_err}")
+    say(14, f"host libraries built with g++ ({', '.join(libs)}); record store backend "
+            f"{st.backend}; JPEG q95, q98 gray and their decodes byte-equal to the CPU "
+            f"build's (SHA-256); PNG round trips exact; JPEG q95 round trip mean abs "
+            f"{jpeg_err:.3f} levels")
+
+    # -- 2. micro: the config-driven run_training on the card against the CPU
+    seen = micro_trainer_gpu_vs_cpu(work)
+    loss_err, psnr_err, ssim_err = micro_check(seen)
+    g, c = seen["gpu"], seen["cpu"]
+    for k in launches:
+        launches[k] += g["launches"][k]
+    lr = float(load_config(str(MICRO_CONFIG)).OPTIMIZE.learning_rate)
+    say(14, f"micro run_training, 2 iterations of batch 2 on the card vs the CPU from one "
+            f"port checkpoint at the config's learning rate {lr}: loader batches bit-equal; "
+            f"losses {', '.join(f'{a:.7f}/{b:.7f}' for a, b in zip(g['losses'], c['losses']))} "
+            f"(worst rel {loss_err:.2e}); validation psnr "
+            f"{g['val'][-1]['psnr']:.6f}/{c['val'][-1]['psnr']:.6f} (rel {psnr_err:.2e}), "
+            f"ssim {g['val'][-1]['ssim']:.8f}/{c['val'][-1]['ssim']:.8f} (rel "
+            f"{ssim_err:.2e}); rtol {MICRO_LOSS_RTOL}; launches on the card {g['launches']}")
+
+    # -- 3. teacher512: the teacher tool, then the entry point in a subprocess
+    t0 = time.perf_counter()
+    data = str(work / "teacher512")
+    k1.launches = k1.bwd_launches = k5.launches = 0
+    cov = make_teacher_dataset(data, str(TEACHER_CONFIG), videos=TEACHER_VIDEOS,
+                               frames=TEACHER_FRAMES, seed=TEACHER_SEED, device=DEV,
+                               log=lambda s: None)
+    torch.cuda.synchronize()
+    teacher_launches = {"K1": k1.launches, "K5": k5.launches}
+    n_frames = TEACHER_VIDEOS * TEACHER_FRAMES
+    if teacher_launches != {"K1": n_frames, "K5": TEACHER_VIDEOS * k5.LAUNCHES} \
+            or not all(0 < v <= 1 for v in cov.values()):
+        raise SystemExit(f"[14] teacher tool: launches {teacher_launches}, coverage {cov}")
+    launches["K1"] += teacher_launches["K1"]
+    launches["K5"] += teacher_launches["K5"]
+    say(14, f"teacher tool at {TEACHER_CONFIG.name}: {TEACHER_VIDEOS} videos x "
+            f"{TEACHER_FRAMES} frames at {cfg_size(TEACHER_CONFIG)}^2 in {time.perf_counter() - t0:.1f} s, coverage "
+            f"{min(cov.values()):.3f}-{max(cov.values()):.3f}, launches {teacher_launches}")
+
+    cfg = load_config(str(TEACHER_CONFIG), {
+        "DATASET": {"data_path": data},
+        "TRAIN": {"check_interval": P14_ITERS, "visual_interval": P14_ITERS}})
+    cfg_path = work / "teacher512.yaml"
+    cfg._dump(str(cfg_path))
+    bs = int(cfg.TRAIN.batch_size)
+    train_ds = build_dataset(cfg, "train")
+    n_train, n_valid = len(train_ds), len(build_dataset(cfg, "valid"))
+    size = int(cfg.MODEL.image_size)
+    # per-sample accumulation: the grid shows the first sample, validation is by 1
+    accum = bool(cfg.TRAIN.get("host_accum", False)) and bs > 1
+
+    # the flax-scale start (init_params, as run_training starts) for two steps of one
+    # sample, then the basemodel: the same runtime at gain 0.5, as a port checkpoint
+    t0 = time.perf_counter()
+    rt = init_params(build_runtime(cfg, synthetic_assets=True, device=DEV), seed=0)
+    loader = PrefetchLoader(train_ds, bs, shuffle=False, pin_memory=True)
+    host_batch = loader.load_batch(range(bs))
+    state = make_train_state(rt.model, learning_rate=float(cfg.OPTIMIZE.learning_rate))
+    flax_step = make_train_step(make_loss_fn(rt.statics, rt.lpips, remat=True), state,
+                                count_scrubbed=True)
+    one = split_batch(to_device(host_batch, DEV), 0)
+    flax_losses = []
+    for _ in range(2):
+        loss, metrics = flax_step(one)
+        flax_losses.append((float(loss), int(metrics["scrubbed_grads"])))
+    flax_finite = all(bool(torch.isfinite(p).all()) for p in rt.model.parameters())
+    say(14, f"teacher512 from the flax-scale init (init_params seed 0), two steps of one "
+            f"sample: (loss, non-finite gradient entries zeroed) {flax_losses}; parameters "
+            f"finite after them: {flax_finite}")
+    del state, flax_step, one
+    gen = torch.Generator().manual_seed(0)
+    init_params_(rt.inferer, gen, gain=TRAIN_INIT_GAIN)
+    init_params_(rt.renderer, gen, gain=TRAIN_INIT_GAIN)
+    base = CheckpointManager(str(work / "base")).save_named(
+        "init_gain05", make_train_state(rt.model, learning_rate=float(cfg.OPTIMIZE.learning_rate)),
+        0)
+
+    # the loader alone (6 targets, 6 sources: decode, resize, collate) and the copy
+    batch_ms = []
+    for i in range(3):
+        t1 = time.perf_counter()
+        loader.load_batch(range(i, i + bs))
+        batch_ms.append((time.perf_counter() - t1) * 1e3)
+    pinned = loader.load_batch(range(bs))
+    h2d = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        to_device(pinned, DEV)
+        end.record()
+        end.synchronize()
+        h2d.append(start.elapsed_time(end))
+    n_bytes = sum(v.numel() * v.element_size() for v in flat_tree(pinned).values())
+    del rt, loader, pinned, host_batch
+    torch.cuda.empty_cache()
+    say(14, f"loader alone: {statistics.median(batch_ms):.1f} ms a batch of {bs} (decode 2 x "
+            f"{bs} JPEG + PNG, resize, collate; median of 3, host clock); H2D of a pinned batch "
+            f"({n_bytes / 1e6:.1f} MB): {statistics.median(h2d):.3f} ms (CUDA events, median "
+            f"of 5); runtime and basemodel in {time.perf_counter() - t0:.1f} s")
+
+    out_root = work / "out"
+    env = dict(os.environ, GUAVA_OUTPUT_DIR=str(out_root),
+               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    prof = work / "prof"
+    t0 = time.perf_counter()
+    lines, run_launches = run_train_cli(
+        ["-c", str(cfg_path), "--synthetic_assets", "--basemodel", base, "--debug",
+         "--max_iters", str(P14_ITERS), "--profile_dir", str(prof)], env)
+    run_s = time.perf_counter() - t0
+    iters, vals = parse_train_log(lines)
+    run_iters = iters
+    run = out_root / cfg.TRAIN.exp_str
+    if sorted(iters) != list(range(1, P14_ITERS + 1)) \
+            or not all(math.isfinite(v) for m, _, _ in iters.values() for v in m.values()):
+        raise SystemExit(f"[14] teacher512 run: iteration lines {iters}")
+    if [it for it, *_ in vals] != [P14_ITERS] \
+            or not all(math.isfinite(v) for _, *pv in vals for v in pv):
+        raise SystemExit(f"[14] teacher512 run: validation lines {vals}")
+    if not any(f"warm start from {base} at iter 0" in ln for ln in lines):
+        raise SystemExit("[14] teacher512 run: no warm start from the basemodel")
+    ckpt_dir = run / "checkpoints"
+    best = [f for f in os.listdir(ckpt_dir) if f.startswith("best_")]
+    for name in ["latest.pt"] + best:
+        payload = torch.load(ckpt_dir / name, map_location="cpu", weights_only=True)
+        if payload["iteration"] != P14_ITERS or not all(
+                bool(torch.isfinite(v).all()) for v in payload["state"]["model"].values()
+                if v.is_floating_point()):
+            raise SystemExit(f"[14] checkpoint {name}: iteration {payload['iteration']}")
+        del payload
+    if len(best) != 1:
+        raise SystemExit(f"[14] checkpoints {os.listdir(ckpt_dir)}")
+    grid = codec.decode_jpeg((run / "visuals_training" / "train_render"
+                              / f"training_{P14_ITERS}.jpg").read_bytes())
+    grid_items = 1 if accum else min(2, bs)
+    if grid.shape != (3 * size, grid_items * size, 3):
+        raise SystemExit(f"[14] the visual grid is {grid.shape}")
+    if not ((run / "config.yaml").is_file() and (run / "codes" / "chip_smoke.py").is_file()
+            and (run / "codes" / "guava_renderer_tpu_torch" / "cli" / "trainer_loop.py").is_file()):
+        raise SystemExit(f"[14] run directory {sorted(os.listdir(run))}")
+    # a step is 6 samples: K3 once a sample, K1 and K5 once a sample and, under remat, once
+    # more in the backward's recomputed forward; the visual grid adds a forward of its
+    # items, and the validation one a frame of its full batches
+    remat = bool(cfg.TRAIN.get("remat", False))
+    step_fwd = bs * (2 if remat else 1)
+    vbs = 1 if accum else bs
+    n_fwd = step_fwd * P14_ITERS + grid_items + n_valid // vbs * vbs
+    want = {"K1": n_fwd, "K3": bs * P14_ITERS, "K5": n_fwd * k5.LAUNCHES}
+    if run_launches != want:
+        raise SystemExit(f"[14] teacher512 run: launches {run_launches}, expected {want}")
+    for k in launches:
+        launches[k] += run_launches[k]
+    busy_ms, window_ms = trace_busy(prof / TRACE_FILE)
+    timed = [iters[i] for i in range(P14_WARMUP + 2, P14_ITERS + 1)]
+    step_med = statistics.median(s for _, s, _ in timed)
+    wait_med = statistics.median(w for _, _, w in timed)
+    losses = [iters[i][0]["total"] for i in sorted(iters)]
+    terms = ", ".join(f"{k} {v:.4g}" for k, v in sorted(iters[P14_ITERS][0].items()))
+    say(14, f"teacher512 through python -m guava_renderer_tpu_torch.cli.train ({n_train} "
+            f"train and {n_valid} validation frames, batch {bs}"
+            f"{' by per-sample accumulation' if accum else ''}"
+            f"{', remat' if remat else ''}, basemodel at gain "
+            f"{TRAIN_INIT_GAIN}) in {run_s:.1f} s: {P14_WARMUP} warm-up, 1 profiled and "
+            f"{P14_ITERS - P14_WARMUP - 1} timed iterations, median "
+            f"{step_med:.1f} ms/step of the timed (host clock; all "
+            f"{', '.join(f'{iters[i][1]:.0f}' for i in sorted(iters))}), loader wait "
+            f"{wait_med:.2f} ms a step (all {', '.join(f'{iters[i][2]:.2f}' for i in sorted(iters))}); "
+            f"losses {', '.join(f'{v:.4f}' for v in losses)} (the last: {terms}); "
+            f"validation @{vals[0][0]} psnr "
+            f"{vals[0][1]:.3f} ssim {vals[0][2]:.4f}; latest and {best[0]} load; grid "
+            f"{grid.shape[1]}x{grid.shape[0]} decodes")
+    say(14, f"profiler over iteration {P14_WARMUP + 1}: device busy {busy_ms:.1f} ms of a "
+            f"{window_ms:.1f} ms window (idle share {1 - busy_ms / window_ms:.3f}), "
+            f"{busy_ms / step_med:.3f} of the timed median step (idle share "
+            f"{1 - busy_ms / step_med:.3f}); launches "
+            f"a step K1 {step_fwd}, K3 {bs}, K5 {step_fwd * k5.LAUNCHES}; the run's {run_launches} "
+            f"(grid and validation included)")
+
+    # -- 4. resume from latest: goes on at the next iteration
+    t0 = time.perf_counter()
+    latest = str(ckpt_dir / "latest.pt")
+    lines, resume_launches = run_train_cli(
+        ["-c", str(cfg_path), "--synthetic_assets", "--basemodel", latest, "--debug",
+         "--max_iters", str(P14_ITERS + 1)], env)
+    iters, vals = parse_train_log(lines)
+    if sorted(iters) != [P14_ITERS + 1] or [v[0] for v in vals] != [P14_ITERS + 1] \
+            or not any(f"warm start from {latest} at iter {P14_ITERS}" in ln for ln in lines) \
+            or not all(math.isfinite(v) for v in iters[P14_ITERS + 1][0].values()):
+        raise SystemExit(f"[14] resume: iterations {sorted(iters)}, validation {vals}")
+    for k in launches:
+        launches[k] += resume_launches[k]
+    terms = ", ".join(f"{k} {v:.4g}" for k, v in sorted(iters[P14_ITERS + 1][0].items()))
+    say(14, f"resume from latest at iteration {P14_ITERS}: iteration {P14_ITERS + 1} in "
+            f"{iters[P14_ITERS + 1][1]:.0f} ms, loss {terms}, "
+            f"validation @{vals[0][0]} psnr {vals[0][1]:.3f} ssim {vals[0][2]:.4f}; the process "
+            f"in {time.perf_counter() - t0:.1f} s; launches {resume_launches}")
+
+    # -- 5. a witness for the run's local_xyz term
+    xyz_witness(cfg, work, base, latest, run_iters)
+    return time.perf_counter() - t14, launches
+
+
+def xyz_terms(statics, batch):
+    """The local_xyz regulariser of each sample of `batch` (OptimizationLoss's
+    relu(|uv_local_xyz| - threshold) x lambda), from the avatar alone."""
+    cfg = statics.loss_cfg
+    terms = []
+    with torch.no_grad():
+        for i in range(batch["target"]["image"].shape[0]):
+            src = split_batch(batch, i)["source"]
+            body, flame = _unpack_params(src["params"])
+            avatar, _ = build_avatar(
+                statics.inferer, statics.ehm, statics.faces, statics.uvmap_f_idx,
+                statics.uvmap_f_bary, statics.uvmap_mask, src["image"], src["w2c"], body, flame,
+                image_size=statics.image_size, invtanfov=statics.invtanfov)
+            excess = torch.linalg.vector_norm(avatar.uv_local_xyz, dim=-1) - cfg.threshold_local_xyz
+            terms.append(float(torch.clamp(excess, min=0.0).mean() * cfg.lambda_local_xyz))
+    return terms
+
+
+def f64_tree(x):
+    """Every floating tensor of a nested module / dict / tuple in float64 (modules in
+    place)."""
+    if isinstance(x, torch.nn.Module):
+        return x.double()
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: f64_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_replace"):
+        return type(x)(*[f64_tree(v) for v in x])
+    if isinstance(x, tuple):
+        return tuple(f64_tree(v) for v in x)
+    return x
+
+
+def avatar_inputs(statics, one):
+    """(source, vertices, texel mask) of a batch of 1, as build_avatar makes them."""
+    src = one["source"]
+    with torch.no_grad():
+        body, flame = _unpack_params(src["params"])
+        verts = ehm_forward(statics.ehm, body, flame).vertices
+        mask, _ = texel_visibility(verts, statics.faces, src["w2c"], statics.uvmap_f_idx,
+                                   statics.uvmap_mask, statics.image_size, statics.invtanfov)
+    return src, verts, mask
+
+
+def inferer_term(statics, src, verts, mask, f64=False):
+    """The local_xyz term (as xyz_terms takes it) of the inferer's UV offsets from these
+    inputs, moved to the inferer's device; with `f64` in float64 (the inferer turned so
+    in place)."""
+    cfg = statics.loss_cfg
+    cast = f64_tree if f64 else (lambda x: x)
+    dev = statics.uvmap_f_bary.device
+    args = tuple(t.to(dev) for t in (src["image"], src["w2c"], verts, mask))
+    with torch.no_grad():
+        _, uv_gs, _ = cast(statics.inferer)(*cast(args), statics.uvmap_f_idx,
+                                            cast(statics.uvmap_f_bary), statics.faces)
+        excess = torch.linalg.vector_norm(uv_gs["local_pos"], dim=-1) - cfg.threshold_local_xyz
+        return float(torch.clamp(excess, min=0.0).mean() * cfg.lambda_local_xyz)
+
+
+def xyz_witness(cfg, work, base, latest, run_iters):
+    """The teacher512 run's local_xyz term, witnessed. The run's iterations but its
+    last are replayed in this process through run_training from the same basemodel,
+    and the run's batches are rebuilt in the loader's order (a fresh dataset and
+    loader, as the run's process made them). On the card, the term of each sample
+    from the basemodel's weights, from the replay's last and from the run's `latest`.
+    The largest of them is recomputed from the CPU's inputs (vertices, texel mask) by
+    the CPU's inferer in float32 and in float64 and by the card's: the card's distance
+    from the float64 term is held to WITNESS_FACTOR times the CPU's float32 one, and so
+    is the card's own term where its texel mask equals the CPU's (the visibility of a
+    face covering a pixel's centre by a hair can flip between the two devices'
+    float32 vertices). Beside them, the term of each iteration of the run and of the
+    replay (from their logs' moving averages)."""
+    t0 = time.perf_counter()
+    n, bs = len(run_iters), int(cfg.TRAIN.batch_size)
+    rt = build_runtime(cfg, synthetic_assets=True, device=DEV)
+    replay = work / "replay"
+    trainer_loop.run_training(rt, build_dataset(cfg, "train"), build_dataset(cfg, "valid"),
+                              str(replay), basemodel=base, debug=True, max_iters=n - 1)
+    replay_iters, _ = parse_train_log((replay / "train_log.txt").read_text().splitlines())
+    weights = {"the basemodel": base,
+               f"the replay's iteration {n - 1}": str(replay / "checkpoints" / "latest.pt"),
+               "the run's latest": latest}
+    loader = endless(PrefetchLoader(build_dataset(cfg, "train"), bs, shuffle=True))
+    host = [b for b, _ in zip(loader, range(n))]
+    ckpts = CheckpointManager(str(work / "witness"))
+
+    def statics_with(rt, path):
+        ckpts.restore(make_train_state(rt.model), path)
+        return rt.statics
+
+    card = {}
+    for name, path in weights.items():
+        statics = statics_with(rt, path)
+        card[name] = [xyz_terms(statics, to_device(b, DEV)) for b in host]
+    loss_cfg = rt.statics.loss_cfg
+    name, it, i = max(((name, it, i) for name, rows in card.items()
+                       for it, r in enumerate(rows) for i in range(len(r))),
+                      key=lambda p: card[p[0]][p[1]][p[2]])
+    # that sample: the CPU's inputs (vertices, texel mask) and terms in float32 and with
+    # the inferer in float64; the card's inferer on the CPU's inputs (and on them with
+    # cuDNN off); the card's own inputs against the CPU's
+    g = card[name][it][i]
+    statics = statics_with(rt, weights[name])
+    _, verts_g, mask_g = avatar_inputs(statics, split_batch(to_device(host[it], DEV), i))
+    rt_cpu = build_runtime(cfg, synthetic_assets=True, device="cpu")
+    statics_cpu = statics_with(rt_cpu, weights[name])
+    src, verts, mask = avatar_inputs(
+        statics_cpu, split_batch(to_device(host[it], torch.device("cpu")), i))
+    c = inferer_term(statics_cpu, src, verts, mask)
+    t = inferer_term(statics_cpu, src, verts, mask, f64=True)
+    g_same = inferer_term(statics, src, verts, mask)
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        g_native = inferer_term(statics, src, verts, mask)
+    flips = int((mask_g.cpu() != mask).sum())
+    dverts = float((verts_g.cpu() - verts).abs().max())
+    del rt, rt_cpu, statics, statics_cpu
+    torch.cuda.empty_cache()
+    allowed = WITNESS_FACTOR * max(abs(c - t), 2.0 ** -24 * abs(t))
+
+    def per_step(log_iters):
+        avg = [log_iters[k][0]["local_xyz_loss"] for k in sorted(log_iters)]
+        return ", ".join(f"{k * a - (k - 1) * b:.4g}" for k, a, b
+                         in zip(range(1, len(avg) + 1), avg, [0.0] + avg))
+
+    def row(terms):
+        return ", ".join(f"{v:.4g}" for v in terms)
+
+    say(14, f"witness for the run's local_xyz term (relu(|uv_local_xyz| - "
+            f"{loss_cfg.threshold_local_xyz}) x {loss_cfg.lambda_local_xyz}; each step's from "
+            f"its log's moving averages): the run's {per_step(run_iters)}; its first {n - 1} "
+            f"iterations replayed here from the basemodel: losses "
+            f"{row(replay_iters[k][0]['total'] for k in sorted(replay_iters))} (the run's "
+            f"{row(run_iters[k][0]['total'] for k in sorted(run_iters))}), local_xyz "
+            f"{per_step(replay_iters)}")
+    for w in weights:
+        say(14, f"  the term from {w}'s weights on the card, on the run's {n} batches rebuilt "
+                f"in the loader's order, a step (the mean of its {bs} samples): "
+                f"{row(sum(r) / len(r) for r in card[w])}; a sample: "
+                f"{'; '.join(row(r) for r in card[w])}")
+    def rel(a):
+        return f"{abs(a - t) / max(abs(t), 1e-30):.2e}"
+
+    say(14, f"  the largest, batch {it + 1}'s item {i} from {name}'s weights: the CPU's "
+            f"float64 inferer {t:.9g}; the CPU's float32 {c:.9g} ({rel(c)} from it); the "
+            f"card's inferer on the CPU's inputs {g_same:.9g} ({rel(g_same)}; allowed "
+            f"{allowed / max(abs(t), 1e-30):.2e}, {WITNESS_FACTOR} x the CPU's), with cuDNN off "
+            f"{g_native:.9g} ({rel(g_native)}); the card end to end {g:.9g} ({rel(g)}): its "
+            f"vertices within {dverts:.3g} of the CPU's, its texel mask differs at {flips} "
+            f"texels; witness in {time.perf_counter() - t0:.1f} s")
+    if not abs(g_same - t) <= allowed or (flips == 0 and not abs(g - t) <= allowed):
+        raise SystemExit(f"[14] witness: local_xyz of batch {it + 1}'s item {i} from {name}'s "
+                         f"weights: the card {g_same} on the CPU's inputs, {g} on its own "
+                         f"({flips} texels of the mask differ), the CPU {c}, float64 {t}")
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -2066,7 +2681,7 @@ def main():
 
     k1.launches = k1.bwd_launches = k2.launches = k2.bwd_launches = k5.launches = 0
     with tempfile.TemporaryDirectory() as run_dir:
-        run_training(state, loss_fn, statics, [tsc.batch], n_steps, run_dir,
+        train_on_batches(state, loss_fn, statics, [tsc.batch], n_steps, run_dir,
                      valid_batches=[tsc.batch], check_interval=10 ** 9, log_every=n_steps,
                      count_scrubbed=True, on_step=on_step, log=train_log.append)
         torch.cuda.synchronize()
@@ -2109,7 +2724,7 @@ def main():
         raise SystemExit(f"training: checkpoint {saved} restored at iteration {restored_it}, "
                          f"parameters equal: {same}")
     del before
-    say(8, f"{n_steps} training steps of batch 1 at full width through run_training "
+    say(8, f"{n_steps} training steps of batch 1 at full width through train_on_batches "
            f"({n_all / 1e6:.1f}M parameters, {n_train / 1e6:.1f}M trained, LPIPS alex, f32, lr "
            f"{TRAIN_LR}): median {med_step:.1f} ms/step over the last {N_TIMED_STEPS} (all: "
            f"{', '.join(f'{t:.0f}' for t in step_ms)}); losses "
@@ -2205,10 +2820,15 @@ def main():
     # ---- 13. the config-driven runtime and the bench script ----
     say(13, f"phase 13 in {config_runtime():.1f} s on {smi}")
 
+    # ---- 14. the data layer and the config-driven, loader-driven trainer ----
+    t14, p14_launches = data_and_trainer()
+    say(14, f"phase 14 in {t14:.1f} s on {smi}; its launches {p14_launches}")
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
-         "replaces": "guava_renderer_tpu/ops/gsplat.py:1018", "launches": launches["K1"],
+         "replaces": "guava_renderer_tpu/ops/gsplat.py:1018",
+         "launches": launches["K1"] + p14_launches["K1"],
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None, **occ["K1"], "at_tiles": at_tiles},
         {"name": "K2 face gather", "route": "cuda",
@@ -2218,7 +2838,8 @@ def main():
          "bound_by": "bytes", "library_ms": k2_lib_ms, "floor_ms": k2_floor_ms, **k2_occ},
         {"name": "K3 tile blend backward", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend_bwd.cu",
-         "replaces": "guava_renderer_tpu/ops/gsplat.py:1457", "launches": train_launches["K3"],
+         "replaces": "guava_renderer_tpu/ops/gsplat.py:1457",
+         "launches": train_launches["K3"] + p14_launches["K3"],
          "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_bound_by, "library_ms": None, **occ["K3"]},
         {"name": "K4 face gather backward", "route": "cuda",
@@ -2230,7 +2851,8 @@ def main():
         {"name": "K5 mesh z-buffer", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39",
-         "launches": create_launches + train_launches["K5"] + accum_launches["K5"],
+         "launches": (create_launches + train_launches["K5"] + accum_launches["K5"]
+                      + p14_launches["K5"]),
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None, "model_cull": cull5,
          **k5_occ},

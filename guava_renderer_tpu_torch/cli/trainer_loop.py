@@ -1,42 +1,45 @@
-"""Training loop (counterpart of `guava_renderer_tpu/cli/trainer_loop.py`,
-cut to what needs no dataset).
+"""The training loop (counterpart of `guava_renderer_tpu/cli/trainer_loop.py`,
+the reference Trainer's role, main/trainer.py:13-301).
 
-Per iteration: batch -> train step -> moving-average logging; every
-`check_interval` steps and at the end, validation (PSNR and SSIM of the
-refined render), a `latest` checkpoint and, when the SSIM improves, a `best`
-one. The batches come from any iterable; the loader, the image grids and the
-configuration-driven entry point of the JAX package are not here yet.
+`run_training(rt, train_ds, valid_ds, run_dir, ...)` is the config-driven
+entry: it snapshots the run (config, git revision, sources), starts from
+`init_params(rt)` or a `basemodel` checkpoint, and trains on batches of
+`TRAIN.batch_size` from a prefetching loader (per-sample accumulation under
+`TRAIN.host_accum`, a recomputed forward under `TRAIN.remat`), with a
+GT / refined / raw image grid every `visual_interval`.
+
+`train_on_batches` is its inner loop, and takes batches from any iterable:
+batch -> train step -> moving-average logging (with it/s, the step's ms and
+the ms spent waiting for the batch); every `check_interval` steps and at
+the end, validation (PSNR and SSIM of the refined render), a `latest`
+checkpoint and, when the SSIM improves, a `best` one.
 """
 
 from __future__ import annotations
 
 import itertools
-from collections import defaultdict, deque
+import os
+import shutil
+import subprocess
+import time
+from collections.abc import Iterator
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
+from ..data.codec import write_image
+from ..data.loader import DeviceBatches, PrefetchLoader, endless
 from ..ops.ssim import psnr, ssim
 from ..train.checkpoints import CheckpointManager
-from ..train.pipeline import PipelineStatics, forward_pipeline
-from ..train.trainstep import TrainState, make_sample_scan_step, make_train_step
+from ..train.pipeline import PipelineStatics, forward_pipeline, make_loss_fn
+from ..train.trainstep import (
+    TrainState, make_sample_scan_step, make_train_state, make_train_step, split_batch)
+from ..utils.logging_utils import (  # noqa: F401  (MovingAverageMeter: this module's API)
+    MovingAverageMeter, SpeedMeter, build_logger, profiler_trace)
+from .context import Runtime, init_params
 
-
-class MovingAverageMeter:
-    """Moving averages over the last `window` iterations."""
-
-    def __init__(self, window: int = 100):
-        self._values: dict[str, deque] = defaultdict(lambda: deque(maxlen=window))
-
-    def update(self, metrics: dict) -> None:
-        for k, v in metrics.items():
-            self._values[k].append(float(v))
-
-    def averages(self) -> dict[str, float]:
-        return {k: sum(v) / len(v) for k, v in self._values.items() if v}
-
-    def format(self) -> str:
-        return " ".join(f"{k}={v:.4f}" for k, v in sorted(self.averages().items()))
+NAMED_CHECKPOINT = 100000      # iteration kept as a named snapshot (as the JAX trainer)
 
 
 def eval_metrics_fn(statics: PipelineStatics) -> Callable[[dict], dict]:
@@ -61,19 +64,24 @@ def run_validation(eval_fn: Callable[[dict], dict], valid_batches: Iterable[dict
     return {k: sum(v[k] for v in vals) / len(vals) for k in ("psnr", "ssim")}
 
 
-def run_training(state: TrainState, loss_fn: Callable, statics: PipelineStatics,
-                 batches: Iterable[dict], n_steps: int, run_dir: str, *,
-                 valid_batches: Iterable[dict] = (), check_interval: int = 1000,
-                 log_every: int = 100, resume: str | None = None,
-                 per_sample: bool = False, count_scrubbed: bool = False,
-                 on_step: Callable[[int, torch.Tensor, dict], None] | None = None,
-                 log: Callable[[str], None] = print) -> TrainState:
-    """Train `state` in place until iteration `n_steps`, cycling over `batches`.
+def train_on_batches(state: TrainState, loss_fn: Callable, statics: PipelineStatics,
+                     batches: Iterable[dict], n_steps: int, run_dir: str, *,
+                     valid_batches: Iterable[dict] = (), check_interval: int = 1000,
+                     log_every: int = 100, resume: str | None = None,
+                     per_sample: bool = False, count_scrubbed: bool = False,
+                     on_step: Callable[[int, torch.Tensor, dict], None] | None = None,
+                     log: Callable[[str], None] = print,
+                     profile_dir: str | None = None) -> TrainState:
+    """Train `state` in place until iteration `n_steps`.
 
-    `resume` names a checkpoint file to start from (its iteration counts as
-    done). `per_sample` takes the accumulation step. `on_step(it, loss,
-    metrics)` sees every step's detached results. Returns the state; the
-    checkpoints are under `<run_dir>/checkpoints`.
+    `batches` is an iterator, taken as it comes, or a collection, cycled.
+    `valid_batches` is read whole at every check (a collection, or a
+    re-iterable loader). `resume` names a checkpoint file to start from (its
+    iteration counts as done). `per_sample` takes the accumulation step.
+    `on_step(it, loss, metrics)` sees every step's detached results. With
+    `profile_dir`, the second iteration (the first after a warm-up) is traced
+    there by torch.profiler. Returns the state; the checkpoints are under
+    `<run_dir>/checkpoints`.
     """
     ckpts = CheckpointManager(run_dir)
     if resume:
@@ -82,20 +90,140 @@ def run_training(state: TrainState, loss_fn: Callable, statics: PipelineStatics,
     make_step = make_sample_scan_step if per_sample else make_train_step
     step = make_step(loss_fn, state, count_scrubbed=count_scrubbed)
     eval_fn = eval_metrics_fn(statics)
-    valid_batches = list(valid_batches)
-    meter = MovingAverageMeter()
-    train_iter = itertools.cycle(batches)
+    if isinstance(valid_batches, Iterator):
+        valid_batches = list(valid_batches)
+    meter, speed = MovingAverageMeter(), SpeedMeter()
+    train_iter = batches if isinstance(batches, Iterator) else itertools.cycle(batches)
+    profile_it = state.iteration + 2 if profile_dir else None
     for it in range(state.iteration + 1, n_steps + 1):
-        loss, metrics = step(next(train_iter))
-        meter.update(metrics)
+        with profiler_trace(profile_dir if it == profile_it else None):
+            t0 = time.perf_counter()
+            batch = next(train_iter)
+            t1 = time.perf_counter()
+            with speed.time_frame():
+                loss, metrics = step(batch)
+                meter.update(metrics)          # float(): the step's one sync
+            t2 = time.perf_counter()
+        if it == profile_it:
+            log(f"profiler trace of iteration {it} written to {profile_dir}")
         if on_step is not None:
             on_step(it, loss, metrics)
         if it % log_every == 0 or it == n_steps:
-            log(f"iter {it}: {meter.format()}")
+            log(f"iter {it}: {meter.format()} ({speed.render_fps:.2f} it/s; step "
+                f"{(t2 - t1) * 1e3:.1f} ms, batch wait {(t1 - t0) * 1e3:.1f} ms)")
         if it % check_interval == 0 or it == n_steps:
             val = run_validation(eval_fn, valid_batches)
             log(f"validation @{it}: psnr={val['psnr']:.3f} ssim={val['ssim']:.4f}")
             ckpts.save_latest(state, it)
             if val["ssim"] > ckpts.best_ssim():
                 ckpts.save_best(state, it, val["ssim"])
+        if it == NAMED_CHECKPOINT:
+            ckpts.save_named(str(NAMED_CHECKPOINT), state, it)
     return state
+
+
+# -- the config-driven entry ---------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SNAPSHOT_DIRS = ("guava_renderer_tpu_torch", "configs")
+SNAPSHOT_FILES = ("chip_smoke.py", "bench_torch.py")
+
+
+def _save_grid(path: str, rows: list[np.ndarray]) -> None:
+    grid = np.concatenate([np.concatenate(list(r), axis=1) for r in rows], axis=0)
+    grid = np.clip(grid * 255.0, 0, 255).astype(np.uint8)
+    write_image(path, grid)
+
+
+def _snapshot_run(run_dir: str, rt: Runtime) -> None:
+    """config.yaml, git_rev.txt and a copy of the sources under codes/
+    (ref: main/trainer.py:276-294), so a run is reproducible without the
+    checkout; a failure is printed and never fatal."""
+    os.makedirs(run_dir, exist_ok=True)
+    rt.cfg._dump(os.path.join(run_dir, "config.yaml"))
+    try:
+        rev = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                             cwd=REPO).stdout.strip()
+        with open(os.path.join(run_dir, "git_rev.txt"), "w") as f:
+            f.write(rev + "\n")
+    except Exception:
+        pass
+    try:
+        codes = os.path.join(run_dir, "codes")
+        if os.path.isdir(codes):
+            shutil.rmtree(codes)
+        for sub in SNAPSHOT_DIRS:
+            src = os.path.join(REPO, sub)
+            if os.path.isdir(src):
+                shutil.copytree(src, os.path.join(codes, sub), ignore=shutil.ignore_patterns(
+                    "__pycache__", "*.pyc", "*.so", "*.o", "*.npz", "*.pt"))
+        for f in SNAPSHOT_FILES:
+            src = os.path.join(REPO, f)
+            if os.path.isfile(src):
+                shutil.copy2(src, os.path.join(codes, f))
+    except Exception as e:  # snapshot failure must never kill training
+        print(f"[trainer] codes snapshot failed: {e}")
+
+
+def _dump_visuals(statics: PipelineStatics, batch: dict, vis_dir: str, it: int) -> None:
+    """A GT / refined / raw grid of the batch's first two items; a failure
+    is printed and never fatal."""
+    try:
+        with torch.no_grad():
+            outputs = forward_pipeline(batch, statics)[0]
+        tgt = batch["target"]
+        gt = (tgt["image"] * tgt["mask"]).cpu().numpy()
+        n = min(2, gt.shape[0])
+        _save_grid(os.path.join(vis_dir, f"training_{it}.jpg"),
+                   [gt[:n], outputs.renders[:n].cpu().numpy(),
+                    outputs.raw_renders[:n].cpu().numpy()])
+    except Exception as e:  # visuals must never kill training
+        print(f"[visuals] skipped: {e}")
+
+
+def run_training(rt: Runtime, train_ds, valid_ds, run_dir: str, basemodel: str | None = None,
+                 debug: bool = False, max_iters: int | None = None,
+                 n_devices: int | None = None, profile_dir: str | None = None) -> TrainState:
+    """Train the runtime's modules on `train_ds` as `rt.cfg` says, on
+    `rt.device`; validate on `valid_ds`. Returns the train state."""
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={n_devices}: data-parallel training over several cards is port "
+            "slice 10; the port trains on one device")
+    cfg = rt.cfg
+    logger = build_logger("train", run_dir)
+    _snapshot_run(run_dir, rt)
+    vis_dir = os.path.join(run_dir, "visuals_training", "train_render")
+    os.makedirs(vis_dir, exist_ok=True)
+
+    batch_size = int(cfg.TRAIN.batch_size)
+    init_params(rt)
+    opt = cfg.OPTIMIZE
+    state = make_train_state(rt.model, learning_rate=float(opt.learning_rate),
+                             lr_decay_rate=float(opt.lr_decay_rate),
+                             lr_decay_iter=int(opt.lr_decay_iter))
+    loss_fn = make_loss_fn(rt.statics, rt.lpips, remat=bool(cfg.TRAIN.get("remat", False)))
+    # TRAIN.host_accum: one sample at a time, gradients accumulated over the
+    # batch (`make_sample_scan_step`); the effective batch stays batch_size
+    host_accum = bool(cfg.TRAIN.get("host_accum", False)) and batch_size > 1
+    if host_accum:
+        logger.info(f"host-accum: {batch_size} samples x 1/step")
+
+    pin = rt.device.type == "cuda"
+    train = DeviceBatches(PrefetchLoader(train_ds, batch_size, shuffle=True, pin_memory=pin),
+                          rt.device)
+    valid = DeviceBatches(PrefetchLoader(valid_ds, 1 if host_accum else batch_size,
+                                         shuffle=False, drop_last=True, pin_memory=pin),
+                          rt.device)
+    visual_interval = int(cfg.TRAIN.get("visual_interval", 1000))
+
+    def on_step(it, loss, metrics):
+        if it % visual_interval == 0:
+            batch = train.last
+            _dump_visuals(rt.statics, split_batch(batch, 0) if host_accum else batch, vis_dir, it)
+
+    return train_on_batches(
+        state, loss_fn, rt.statics, endless(train), max_iters or int(cfg.TRAIN.train_iter),
+        run_dir, valid_batches=valid, check_interval=int(cfg.TRAIN.check_interval),
+        log_every=1 if debug else 100, resume=basemodel, per_sample=host_accum,
+        on_step=on_step, log=logger.info, profile_dir=profile_dir)

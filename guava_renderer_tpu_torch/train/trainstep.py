@@ -34,9 +34,18 @@ class TrainState:
                 "scheduler": self.scheduler.state_dict(), "iteration": self.iteration}
 
     def load_state_dict(self, sd: dict) -> None:
+        """The weights, the Adam moments and the schedule's position come from
+        `sd`; the optimizer's hyperparameters and schedule stay this state's
+        own (its run's config), as a JAX run's schedule is its config's and not
+        in its checkpoints."""
         self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
-        self.scheduler.load_state_dict(sd["scheduler"])
+        own_groups = self.optimizer.state_dict()["param_groups"]
+        self.optimizer.load_state_dict({"state": sd["optimizer"]["state"],
+                                        "param_groups": own_groups})
+        # rebuilt one step before the saved position: its first step sets each lr there
+        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            self.optimizer, self.scheduler.lr_lambdas,
+            last_epoch=int(sd["scheduler"]["last_epoch"]) - 1)
         self.iteration = int(sd["iteration"])
 
 

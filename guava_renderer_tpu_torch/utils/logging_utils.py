@@ -1,0 +1,123 @@
+"""Run logging and observability (counterpart of
+`guava_renderer_tpu/utils/logging_utils.py`).
+
+Covers the reference's logger + moving-average loss lines + speed_info
+persistence (ref: utils/general_utils.py:294-308, main/trainer.py:234-255,
+main/test.py:46-50,90-94), plus a torch.profiler trace hook that writes a
+Chrome trace (the reference has no profiler integration at all — SURVEY
+§5.1).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import time
+from collections import defaultdict, deque
+
+
+def build_logger(name: str, dump_dir: str | None = None) -> logging.Logger:
+    """File (DEBUG) + console (INFO) logger (ref 'biuld_logger')."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    logger.handlers.clear()
+    con = logging.StreamHandler()
+    con.setLevel(logging.INFO)
+    con.setFormatter(logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S"))
+    logger.addHandler(con)
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        fh = logging.FileHandler(os.path.join(dump_dir, "train_log.txt"))
+        fh.setLevel(logging.DEBUG)
+        fh.setFormatter(
+            logging.Formatter("[%(asctime)s][%(levelname)s] %(message)s")
+        )
+        logger.addHandler(fh)
+    return logger
+
+
+class MovingAverageMeter:
+    """100-iteration moving averages (ref: trainer.py:234-255)."""
+
+    def __init__(self, window: int = 100):
+        self._values: dict[str, deque] = defaultdict(lambda: deque(maxlen=window))
+
+    def update(self, metrics: dict) -> None:
+        for k, v in metrics.items():
+            self._values[k].append(float(v))
+
+    def averages(self) -> dict[str, float]:
+        return {k: sum(v) / len(v) for k, v in self._values.items() if v}
+
+    def format(self) -> str:
+        return " ".join(f"{k}={v:.4f}" for k, v in sorted(self.averages().items()))
+
+
+class SpeedMeter:
+    """Accumulates per-stage wall times; writes speed_info.json
+    ({'infer_time' ms, 'render_speed' fps}, ref: main/test.py:90-94)."""
+
+    def __init__(self):
+        self.infer_time_ms: float | None = None
+        self._render_times: list[float] = []
+
+    @contextlib.contextmanager
+    def time_infer(self):
+        t0 = time.time()
+        yield
+        self.infer_time_ms = (time.time() - t0) * 1000.0
+
+    @contextlib.contextmanager
+    def time_frame(self):
+        t0 = time.time()
+        yield
+        self._render_times.append(time.time() - t0)
+
+    def add_frames(self, n: int, total_seconds: float) -> None:
+        """Record n frames produced by ONE batched device call
+        (frames-data-parallel rendering)."""
+        if n > 0:
+            self._render_times.extend([total_seconds / n] * n)
+
+    @property
+    def render_fps(self) -> float:
+        if not self._render_times:
+            return 0.0
+        return len(self._render_times) / sum(self._render_times)
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(
+                {
+                    "infer_time": self.infer_time_ms,
+                    "render_speed": self.render_fps,
+                },
+                f,
+                indent=2,
+            )
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Optional torch.profiler trace around a region, written to
+    `<log_dir>/trace.json` in the Chrome trace format; device activity is
+    recorded when a CUDA device is present."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

@@ -10,7 +10,7 @@ from torch import nn
 
 from guava_renderer_tpu_torch import testing as ttesting
 from guava_renderer_tpu_torch.cli.trainer_loop import (
-    MovingAverageMeter, eval_metrics_fn, run_training, run_validation)
+    MovingAverageMeter, eval_metrics_fn, run_validation, train_on_batches)
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager
 from guava_renderer_tpu_torch.train.pipeline import make_loss_fn
 from guava_renderer_tpu_torch.train.trainstep import make_train_state, make_train_step
@@ -90,15 +90,15 @@ def test_moving_average_meter():
 
 @pytest.fixture(scope="module")
 def micro_run(tmp_path_factory):
-    """Three steps of the micro pipeline through `run_training`, then a
-    resumed run to step 5."""
+    """Three steps of the micro pipeline through `train_on_batches` (the inner
+    loop of `run_training`), then a resumed run to step 5."""
     run_dir = str(tmp_path_factory.mktemp("run"))
     tp = ttesting.make_micro_pipeline(batch_size=1, device="cpu")
     model = nn.ModuleDict({"inferer": tp.statics.inferer, "renderer": tp.statics.renderer})
     state = make_train_state(model, learning_rate=1e-3)
     loss_fn = make_loss_fn(tp.statics, None)
     lines, seen = [], []
-    run_training(state, loss_fn, tp.statics, [tp.batch], 3, run_dir, valid_batches=[tp.batch],
+    train_on_batches(state, loss_fn, tp.statics, [tp.batch], 3, run_dir, valid_batches=[tp.batch],
                  check_interval=2, log_every=1, count_scrubbed=True,
                  on_step=lambda it, loss, metrics: seen.append((it, float(loss))),
                  log=lines.append)
@@ -108,7 +108,7 @@ def micro_run(tmp_path_factory):
     model2 = nn.ModuleDict({"inferer": tp2.statics.inferer, "renderer": tp2.statics.renderer})
     state2 = make_train_state(model2, learning_rate=1e-3)
     lines2, seen2 = [], []
-    run_training(state2, make_loss_fn(tp2.statics, None), tp2.statics, [tp.batch], 5, run_dir,
+    train_on_batches(state2, make_loss_fn(tp2.statics, None), tp2.statics, [tp.batch], 5, run_dir,
                  resume=os.path.join(run_dir, "checkpoints", "latest.pt"), log_every=1,
                  on_step=lambda it, loss, metrics: seen2.append(it), log=lines2.append)
     return dict(run_dir=run_dir, lines=lines, seen=seen, after3=after3, state=state,

@@ -1,6 +1,8 @@
 """Package rules of the port: no JAX at all, and CUDA unless asked otherwise."""
 
 import ast
+import os
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -8,9 +10,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "guava_renderer_tpu")
-# absent on the card: the port reads configs with its own reader and
-# converted weights with torch.load
-ABSENT_ON_CARD = ("yaml", "msgpack")
+# absent on the card: the port reads configs with its own reader, converted
+# weights with torch.load, and images with its own codec (data/codec.py)
+ABSENT_ON_CARD = ("yaml", "msgpack", "cv2", "PIL", "imageio", "lmdb")
 PORT_FILES = sorted((ROOT / "guava_renderer_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
@@ -39,7 +41,10 @@ def test_port_imports_nothing_absent_on_the_card(path):
 
 TRAIN_MODULES = ("train/lpips.py", "train/losses.py", "train/pipeline.py", "train/trainstep.py",
                  "train/checkpoints.py", "cli/trainer_loop.py", "ops/ssim.py",
-                 "ops/gsplat_reference.py", "testing.py")
+                 "ops/gsplat_reference.py", "testing.py", "data/__init__.py", "data/store.py",
+                 "data/codec.py", "data/tracked.py", "data/loader.py", "data/synthetic.py",
+                 "native/__init__.py", "utils/logging_utils.py", "train/metrics.py",
+                 "cli/train.py", "tools/make_teacher_dataset.py")
 
 
 @pytest.mark.parametrize("rel", TRAIN_MODULES)
@@ -59,9 +64,13 @@ def _entry_points():
         dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
     from guava_renderer_tpu_torch.cli.context import build_runtime
     from guava_renderer_tpu_torch.utils.config import load_config
+    from guava_renderer_tpu_torch.cli import train as cli_train
+    from guava_renderer_tpu_torch.cli.trainer_loop import run_training
+    from guava_renderer_tpu_torch.tools import make_teacher_dataset
     import bench_torch
 
     micro = str(ROOT / "configs" / "train" / "micro_synthetic.yaml")
+    scratch = tempfile.mkdtemp()
 
     return {
         "make_bench_scene": lambda: make_bench_scene(64, 64, 21, 7),
@@ -82,6 +91,11 @@ def _entry_points():
         "tools.mosaic_probe": lambda: mosaic_probe.main([]),
         "build_runtime": lambda: build_runtime(load_config(micro), synthetic_assets=True),
         "bench_torch": lambda: bench_torch.main([]),
+        "cli.train": lambda: cli_train.main(["-c", micro, "--synthetic_assets"]),
+        "tools.make_teacher_dataset": lambda: make_teacher_dataset.main(
+            ["--out", os.path.join(scratch, "teacher"), "-c", micro]),
+        "run_training": lambda: run_training(
+            build_runtime(load_config(micro), synthetic_assets=True), None, None, scratch),
     }
 
 
@@ -91,10 +105,27 @@ def _entry_points():
                                   "make_micro_pipeline", "make_tiny_pipeline",
                                   "lpips_from_flax", "tools.ee_probe", "tools.dma_bench",
                                   "tools.sort_payload_bench", "tools.mosaic_probe",
-                                  "build_runtime", "bench_torch"])
+                                  "build_runtime", "bench_torch", "cli.train",
+                                  "tools.make_teacher_dataset", "run_training"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+def test_cuda_entry_device_turns_tf32_off(monkeypatch):
+    """An entry point's CUDA device computes float32 convolutions and matrix
+    products in float32, the precision the port is held to; the CPU device
+    leaves the flags as they are."""
+    from guava_renderer_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert resolve_device().type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -208,3 +208,30 @@ def test_train_state_round_trip():
     for a, b in zip(model.parameters(), other.parameters()):
         assert torch.equal(a, b)
     assert restored.optimizer.param_groups[0]["lr"] == state.optimizer.param_groups[0]["lr"]
+
+
+def test_restore_keeps_the_states_own_hyperparameters():
+    """A state restored from a file saved at another learning rate takes the
+    file's weights, moments and schedule position, and keeps its own rate and
+    schedule: lr = its base rate x its decay factor at the saved position."""
+    model = Toy()
+    state = make_train_state(model, learning_rate=1e-2, lr_decay_rate=0.5, lr_decay_iter=10)
+    step = make_train_step(toy_loss_fn(model), state)
+    for _ in range(3):
+        step(make_batch())
+    saved = copy.deepcopy(state.state_dict())
+    other = Toy()
+    restored = make_train_state(other, learning_rate=1e-3, lr_decay_rate=0.5, lr_decay_iter=10)
+    restored.load_state_dict(saved)
+    factor = 1.0 + (0.5 - 1.0) * 3 / 10
+    assert restored.iteration == 3 and restored.scheduler.last_epoch == 3
+    assert restored.optimizer.param_groups[0]["lr"] == pytest.approx(1e-3 * factor, rel=1e-12)
+    assert restored.scheduler.get_last_lr()[0] == restored.optimizer.param_groups[0]["lr"]
+    for a, b in zip(model.parameters(), other.parameters()):
+        assert torch.equal(a, b)
+    for p in model.parameters():
+        assert torch.equal(state.optimizer.state[p]["exp_avg_sq"],
+                           restored.optimizer.state[dict(zip(model.parameters(),
+                                                             other.parameters()))[p]]["exp_avg_sq"])
+    make_train_step(toy_loss_fn(other), restored)(make_batch())
+    assert restored.scheduler.last_epoch == 4
