@@ -99,7 +99,20 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      float64 and by the card's (within WITNESS_FACTOR of the CPU's float32
      error from float64). It prints ms/step, the loader's wait a step, the
      loader's ms a batch alone, the H2D ms of a pinned batch, device busy
-     and the idle share, and the K1, K3 and K5 launches a step.
+     and the idle share, and the K1, K3 and K5 launches a step;
+ 15. the inference drivers and their entry points at those widths, on phase 14's
+     teacher512 dataset and run directory (its checkpoints and config snapshot):
+     `python -m guava_renderer_tpu_torch.cli.test` in a subprocess (the timed
+     self-reenactment: PNGs, avatar.ply, the side-by-side MP4 read back,
+     speed_info.json under the creation limit, K5 twice a creation and K1 and K2
+     once a frame), then in this process through their `main`: cross-reenactment
+     and 120 static novel views, convert_motion and resample_motion on an
+     EMAGE-style track, create_avatar, render_motion at 512^2 and 1024^2 (the
+     refiner at 512^2), metrics on the self-reenactment's dumps, one generation
+     through the app service polled every 50 ms (the video only with its job
+     done), and cli.test on micro_synthetic.yaml on the card against the CPU
+     from one seed-0 checkpoint (PNGs within SMALL_CREATE_TOL x 255 + 1 levels).
+     It prints ms/creation and fps beside phases 6 and 4.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -113,6 +126,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -127,24 +141,27 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; none is available")
 
 from guava_renderer_tpu_torch.avatar.deformer import (  # noqa: E402
-    _face_table, deform_avatar, deform_with_vertices, sort_avatar_by_plan)
+    _face_table, canonical_gaussians, deform_avatar, deform_with_vertices, sort_avatar_by_plan)
 from guava_renderer_tpu_torch.avatar.inferer import (  # noqa: E402
     InfererConfig, UbodyGaussianInferer, assemble_avatar, build_avatar, texel_visibility)
 from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
 from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
     INVTANFOV, UBODY_LADDER, make_bench_scene, make_create_scene, make_train_scene)
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
-from guava_renderer_tpu_torch.cli.context import build_runtime, init_params  # noqa: E402
+from guava_renderer_tpu_torch.cli.context import (  # noqa: E402
+    build_runtime, init_params, load_model_params)
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
-    FramePipeline, _batched_params, _unpack_params)
-from guava_renderer_tpu_torch.cli import trainer_loop  # noqa: E402
+    FramePipeline, _batched_params, _save_png, _unpack_params)
+from guava_renderer_tpu_torch.cli import (  # noqa: E402
+    app, convert_motion, create_avatar, metrics, render_motion, resample_motion, trainer_loop)
+from guava_renderer_tpu_torch.cli import test as test_cli  # noqa: E402
 from guava_renderer_tpu_torch.cli.trainer_loop import train_on_batches  # noqa: E402
 from guava_renderer_tpu_torch.core.cameras import Camera  # noqa: E402
 from guava_renderer_tpu_torch.data import codec  # noqa: E402
 from guava_renderer_tpu_torch.data.loader import PrefetchLoader, endless, to_device  # noqa: E402
 from guava_renderer_tpu_torch.data.store import RecordStore, RecordStoreWriter  # noqa: E402
 from guava_renderer_tpu_torch.data.synthetic import write_synthetic_dataset  # noqa: E402
-from guava_renderer_tpu_torch.data.tracked import build_dataset  # noqa: E402
+from guava_renderer_tpu_torch.data.tracked import TrackedVideoDataset, build_dataset  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
 from guava_renderer_tpu_torch.kernels import copy_probe as kt1  # noqa: E402
@@ -180,6 +197,7 @@ from guava_renderer_tpu_torch.train.trainstep import (  # noqa: E402
     make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads, split_batch)
 from guava_renderer_tpu_torch.utils.config import load_config  # noqa: E402
 from guava_renderer_tpu_torch.utils.logging_utils import TRACE_FILE  # noqa: E402
+from guava_renderer_tpu_torch.utils.video import read_video, to_uint8  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -333,6 +351,27 @@ TRAIN_WRAPPER = (
     "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': k1.launches, "
     "'K3': k1.bwd_launches, 'K5': k5.launches}), flush=True))\n"
     "runpy.run_module('guava_renderer_tpu_torch.cli.train', run_name='__main__', "
+    "alter_sys=True)\n")
+# phase 15: the inference drivers and their entry points at teacher512 widths, on phase 14's
+# teacher512 dataset (2 videos x 8 frames, no testing split: 16 test frames) and run directory
+P15_FRAMES = 8                 # --max_frames of the self-reenactment: every frame of a video
+P15_VIEWS = 120                # render_novel_views' default num_keyframes
+P15_MOTION_T, P15_MOTION_FPS = 30, 25      # the EMAGE-style track, resampled to 30 fps
+P15_MOTION_FRAMES = 4          # render_motion --max_frames
+P15_MOTION_SIZES = (512, 1024)
+# an MP4 frame (a JPEG at quality 95) against its PNGs, mean abs in levels
+VIDEO_MEAN_LEVELS = 2.0
+APP_POLL_S, APP_TIMEOUT_S = 0.05, 120
+TEST_TIMEOUT_S = 600
+# runs `python -m guava_renderer_tpu_torch.cli.test` with its arguments, and prints the
+# process's K1, K2 and K5 launches at exit
+TEST_WRAPPER = (
+    "import atexit, json, runpy\n"
+    "from guava_renderer_tpu_torch.kernels import blend as k1, facegather as k2, "
+    "meshraster as k5\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'K1': k1.launches, "
+    "'K2': k2.launches, 'K5': k5.launches}), flush=True))\n"
+    "runpy.run_module('guava_renderer_tpu_torch.cli.test', run_name='__main__', "
     "alter_sys=True)\n")
 
 
@@ -1721,20 +1760,12 @@ def flat_tree(tree, prefix=""):
     return out
 
 
-def data_and_trainer():
+def phase14(work):
     """Phase 14: the native store and codec built on the card's host; the
     config-driven trainer at micro widths on the card against the CPU; the teacher
     tool and `python -m guava_renderer_tpu_torch.cli.train` at the widths of
-    teacher512_synthetic.yaml, then a resume. -> (seconds, K1/K3/K5 launches)."""
-    (ROOT / "build").mkdir(exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="p14_", dir=ROOT / "build"))
-    try:
-        return phase14(work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-
-
-def phase14(work):
+    teacher512_synthetic.yaml, then a resume. Its dataset and run directory stay in
+    `work` for phase 15. -> (seconds, K1/K3/K5 launches)."""
     t14 = time.perf_counter()
     launches = {"K1": 0, "K3": 0, "K5": 0}
 
@@ -2114,6 +2145,346 @@ def xyz_witness(cfg, work, base, latest, run_iters):
         raise SystemExit(f"[14] witness: local_xyz of batch {it + 1}'s item {i} from {name}'s "
                          f"weights: the card {g_same} on the CPU's inputs, {g} on its own "
                          f"({flips} texels of the mask differ), the CPU {c}, float64 {t}")
+
+
+def run_test_cli(args, timeout=TEST_TIMEOUT_S):
+    """`python -m guava_renderer_tpu_torch.cli.test ARGS` (through TEST_WRAPPER) ->
+    (its output lines, its K1/K2/K5 launches); exits on a non-zero return code."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", TEST_WRAPPER, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    out = proc.stdout.splitlines() + proc.stderr.splitlines()
+    if proc.returncode != 0:
+        raise SystemExit(f"[15] cli.test {' '.join(args)}: rc {proc.returncode}; tail:\n"
+                         + "\n".join(out[-40:]))
+    launches = [json.loads(ln[len("LAUNCHES "):]) for ln in proc.stdout.splitlines()
+                if ln.startswith("LAUNCHES ")]
+    return out, launches[-1]
+
+
+def zero_launches():
+    k1.launches = k2.launches = k5.launches = 0
+
+
+def read_launches():
+    torch.cuda.synchronize()
+    return {"K1": k1.launches, "K2": k2.launches, "K5": k5.launches}
+
+
+def driver_launches(creations, frames):
+    """K1 and K2 once a frame (the planned gather), K5 k5.LAUNCHES a creation."""
+    return {"K1": frames, "K2": frames, "K5": creations * k5.LAUNCHES}
+
+
+def pngs(d):
+    return sorted(p.name for p in Path(d).glob("*.png"))
+
+
+def check_dump(where, d, indices, video, size, width=None):
+    """PNGs named by `indices`, the MP4 `video` of as many frames of size x width,
+    each within VIDEO_MEAN_LEVELS of its PNGs (side by side when `width` is two of
+    them), and speed_info.json under the creation limit -> (ms/creation, fps,
+    the largest mean abs of an MP4 frame from its PNGs)."""
+    d = Path(d)
+    names = [f"{i:06d}.png" for i in indices]
+    n = len(names)
+    dirs = [d / "gt", d / "render"] if width else [d]
+    for sub in dirs:
+        if pngs(sub) != names:
+            raise SystemExit(f"[15] {where}: {sub} holds {len(pngs(sub))} PNGs, expected {n}")
+    v = read_video(str(d / video))
+    shape = (n, size, width or size, 3)
+    if v.frames.shape != shape or v.fps != 30.0:
+        raise SystemExit(f"[15] {where}: {video} is {v.frames.shape} at {v.fps} fps, "
+                         f"expected {shape} at 30")
+    worst = 0.0
+    for i, name in enumerate(names):
+        want = np.concatenate([codec.read_rgb(str(sub / name)) for sub in dirs], axis=1)
+        worst = max(worst, float(np.abs(v.frames[i].astype(int) - want).mean()))
+    if not worst <= VIDEO_MEAN_LEVELS:
+        raise SystemExit(f"[15] {where}: an MP4 frame lies {worst:.3f} levels (mean abs) "
+                         f"from its PNGs, over {VIDEO_MEAN_LEVELS}")
+    info = json.loads((d / "speed_info.json").read_text())
+    if not (0 < info["infer_time"] < CREATE_LIMIT_MS and info["render_speed"] > 0):
+        raise SystemExit(f"[15] {where}: speed_info {info} (creation limit "
+                         f"{CREATE_LIMIT_MS:.0f} ms)")
+    return info["infer_time"], info["render_speed"], worst
+
+
+def drivers(work, frame_ms, create_ms):
+    """Phase 15: the inference drivers and their entry points at teacher512 widths on
+    phase 14's teacher512 dataset and run directory (its checkpoints and config
+    snapshot), then a micro run on the card against the CPU. -> (seconds, K1/K2/K5
+    launches)."""
+    t15 = time.perf_counter()
+    total = {"K1": 0, "K2": 0, "K5": 0}
+
+    def count(got):
+        for k in total:
+            total[k] += got[k]
+
+    data = work / "teacher512"
+    run = work / "out" / load_config(str(work / "teacher512.yaml")).TRAIN.exp_str
+    snapshot = run / "config.yaml"
+    cfg = load_config(str(snapshot))
+    size, tile = int(cfg.MODEL.image_size), int(cfg.MODEL.raster.tile)
+    ds = TrackedVideoDataset(str(data), "test", image_size=size,
+                             feature_img_size=cfg.MODEL.feature_img_size,
+                             origin_image_size=cfg.DATASET.origin_image_size)
+    n_test = len(ds)
+    out = work / "p15"
+    common = ["-m", str(run), "--data_path", str(data), "--synthetic_assets"]
+
+    # -- 0. the weights' frame 0 on this card: the instances it bins
+    rt = build_runtime(cfg, synthetic_assets=True, device=DEV)
+    _, weights = load_model_params(rt, str(run))
+    pipe = FramePipeline.from_runtime(rt)
+    avatar, _ = pipe.infer_avatar(ds[0]["source"])
+    tgt = ds[0]["target"]
+    body, flame = _unpack_params(_batched_params(tgt["params"], DEV))
+    with torch.no_grad():
+        gs = deform_avatar(avatar, rt.ehm, pipe.faces, body, flame, plan=pipe.plan,
+                           compact_faces=pipe.cfaces)
+        n_canon = canonical_gaussians(avatar, pipe.faces).xyz.shape[1]
+    cam = Camera.from_w2c(torch.as_tensor(tgt["w2c"], device=DEV), 1.0 / float(
+        cfg.MODEL.invtanfov), size, size)
+    n_inst = frame_instances(gs, cam, tile)
+    # the host's writes a frame beside the frame: its two PNGs and its MP4 sample
+    gt = to_uint8(np.asarray(tgt["image"]) * np.asarray(tgt["mask"]))
+    split = {"frame": [], "PNGs": [], "JPEG": []}
+    for i in range(3):
+        t0 = time.perf_counter()
+        frame = pipe.render_frame(avatar, tgt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        render = to_uint8(frame["render"].cpu().numpy())
+        _save_png(str(work / "p15_gt.png"), gt)
+        _save_png(str(work / "p15_render.png"), render)
+        t2 = time.perf_counter()
+        codec.encode_jpeg(np.concatenate([gt, render], axis=1), 95)
+        t3 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(v * 1e3)
+    split = {k: statistics.median(v) for k, v in split.items()}
+    write_share = (split["PNGs"] + split["JPEG"]) / sum(split.values())
+    del rt, pipe, avatar, gs, frame
+    torch.cuda.empty_cache()
+    if not 0 < n_inst <= CONFIG_INSTANCE_BUDGET:
+        raise SystemExit(f"[15] frame 0 of {weights} bins {n_inst} instances (budget "
+                         f"{CONFIG_INSTANCE_BUDGET})")
+
+    # -- 1. self-reenactment through `python -m guava_renderer_tpu_torch.cli.test`
+    t0 = time.perf_counter()
+    self_dir = out / "self"
+    lines, got = run_test_cli(["-c", str(snapshot), *common, "-s", str(self_dir),
+                               "--max_frames", str(P15_FRAMES)])
+    self_s = time.perf_counter() - t0
+    if not any(ln.startswith("[test] weights: ") and "checkpoints" in ln for ln in lines):
+        raise SystemExit("[15] cli.test did not load the run's checkpoint")
+    videos = sorted({k.split("/")[0] for k in ds.frames})
+    if sorted(p.name for p in self_dir.iterdir()) != videos:
+        raise SystemExit(f"[15] self-reenactment wrote {sorted(os.listdir(self_dir))}")
+    speeds, worst = [], 0.0
+    for vid in videos:
+        scene = self_dir / vid
+        if not (scene / "avatar.ply").is_file():
+            raise SystemExit(f"[15] {vid}: no avatar.ply")
+        idxs = [i for i, k in enumerate(ds.frames) if k.split("/")[0] == vid][:P15_FRAMES]
+        ms, fps, err = check_dump(f"self {vid}", scene, idxs, f"{vid}_compare.mp4", size,
+                                  width=2 * size)
+        speeds.append((ms, fps))
+        worst = max(worst, err)
+    want = driver_launches(2 * len(videos), len(videos) * (P15_FRAMES + 1))
+    if got != want:
+        raise SystemExit(f"[15] self-reenactment launches {got}, expected {want} (a warm-up "
+                         f"and a timed creation, a warm-up and {P15_FRAMES} frames a video)")
+    count(got)
+    say(15, f"self-reenactment through python -m guava_renderer_tpu_torch.cli.test on "
+            f"{weights}: {len(videos)} videos x {P15_FRAMES} frames at {size}^2 in "
+            f"{self_s:.1f} s; ms/creation (speed_info) "
+            f"{', '.join(f'{m:.2f}' for m, _ in speeds)} (phase 6: {create_ms:.2f}; limit "
+            f"{CREATE_LIMIT_MS:.0f}); fps {', '.join(f'{f:.2f}' for _, f in speeds)} "
+            f"(phase 4's render_frame: {1e3 / frame_ms:.2f}); frame 0 bins {n_inst} instances "
+            f"({n_canon} Gaussians); PNGs, avatar.ply and the compare MP4s written, each MP4 "
+            f"frame within {worst:.3f} levels of its PNGs (limit {VIDEO_MEAN_LEVELS}); "
+            f"launches {got}")
+    say(15, f"host split of a dumped frame (ms, median of 3, host clock): render_frame "
+            f"{split['frame']:.2f}, its gt and render PNGs {split['PNGs']:.2f}, its MP4 sample "
+            f"(JPEG q95 of {size}x{2 * size}) {split['JPEG']:.2f}: the writes take "
+            f"{write_share:.3f} of a frame")
+
+    # -- 2. cross-reenactment and the static novel views, in this process
+    t0 = time.perf_counter()
+    zero_launches()
+    test_cli.main([*common, "-s", str(out / "modes"), "--render_cross_act"])
+    got = read_launches()
+    ms_c, fps_c, _ = check_dump("cross", out / "modes" / "cross", range(n_test),
+                                "cross_reenact.mp4", size)
+    if got != driver_launches(2, n_test):
+        raise SystemExit(f"[15] cross-reenactment launches {got}")
+    count(got)
+    zero_launches()
+    test_cli.main([*common, "-s", str(out / "modes"), "--render_static_novel_views"])
+    got = read_launches()
+    ms_n, fps_n, _ = check_dump("novel views", out / "modes" / "novel_0", range(P15_VIEWS),
+                                "novel_views.mp4", size)
+    if got != driver_launches(2, P15_VIEWS):
+        raise SystemExit(f"[15] novel-view launches {got}")
+    count(got)
+    torch.cuda.empty_cache()
+    say(15, f"cross-reenactment ({n_test} frames) and static novel views ({P15_VIEWS} "
+            f"keyframes) through cli.test's main in {time.perf_counter() - t0:.1f} s: "
+            f"ms/creation {ms_c:.2f}, {ms_n:.2f}; fps {fps_c:.2f}, {fps_n:.2f}; PNG and MP4 "
+            f"frame counts as expected")
+
+    # -- 3. an EMAGE-style track -> convert_motion, resample_motion -> create_avatar ->
+    # render_motion at 512^2 and 1024^2
+    t0 = time.perf_counter()
+    mdir = out / "motion"
+    mdir.mkdir(parents=True)
+    recs = [ds[i]["target"]["params"] for i in range(n_test)]
+    poses = np.zeros((P15_MOTION_T, 165), np.float32)
+    for t in range(P15_MOTION_T):
+        p = recs[t % n_test]
+        poses[t] = np.concatenate([np.reshape(p[k], -1) for k in (
+            "global_pose", "body_pose", "flame_jaw", "flame_eyes", "left_hand_pose",
+            "right_hand_pose")])
+    emage = str(mdir / "emage.npz")
+    np.savez(emage, poses=poses)
+    n_30 = int(np.floor((P15_MOTION_T - 1) / P15_MOTION_FPS * 30)) + 1
+    conv = convert_motion.main(["--smplx_motion", emage, "--src_fps", str(P15_MOTION_FPS),
+                                "--dst_fps", "30", "-o", str(mdir / "converted.npz")])
+    with np.load(conv) as z:
+        if z["smplx/body_pose"].shape != (n_30, 21, 3) or float(z["fps"]) != 30.0:
+            raise SystemExit(f"[15] convert_motion: {[(k, z[k].shape) for k in z.files]}")
+    res = resample_motion.main(["-i", emage, "-o", str(mdir / "emage30.npz"), "--src_fps",
+                                str(P15_MOTION_FPS), "--dst_fps", "30"])
+    with np.load(res) as z:
+        if z["poses"].shape != (n_30, 165):
+            raise SystemExit(f"[15] resample_motion: poses {z['poses'].shape}")
+    zero_launches()
+    avatar_path = str(mdir / "avatar.pt")
+    create_avatar.main([*common, "--source_video_id", videos[0], "--output_avatar_path",
+                        avatar_path])
+    got = read_launches()
+    if got != driver_launches(2, 0) or not (mdir / "avatar.ply").is_file():
+        raise SystemExit(f"[15] create_avatar: launches {got}")
+    count(got)
+    refined = []
+    real_forward = NeuralRefiner.forward
+
+    def recording_forward(self, x, *a, **kw):
+        refined.append(tuple(x.shape[1:3]))
+        return real_forward(self, x, *a, **kw)
+
+    shapes = {}
+    NeuralRefiner.forward = recording_forward
+    try:
+        for s in P15_MOTION_SIZES:
+            zero_launches()
+            refined.clear()
+            mp4 = str(mdir / f"motion_{s}.mp4")
+            render_motion.main(["-a", avatar_path, *common[:2], "--synthetic_assets",
+                                "--smplx_motion", res, "--image_size", str(s),
+                                "--max_frames", str(P15_MOTION_FRAMES), "-o", mp4])
+            got = read_launches()
+            v = read_video(mp4)
+            shapes[s] = (v.frames.shape, sorted(set(refined)))
+            if v.frames.shape != (P15_MOTION_FRAMES, s, s, 3) \
+                    or refined != [(size, size)] * P15_MOTION_FRAMES \
+                    or got != driver_launches(0, P15_MOTION_FRAMES):
+                raise SystemExit(f"[15] render_motion at {s}: frames {v.frames.shape}, "
+                                 f"refiner inputs {refined}, launches {got}")
+            count(got)
+    finally:
+        NeuralRefiner.forward = real_forward
+    torch.cuda.empty_cache()
+    say(15, f"motion: a {P15_MOTION_T}-frame track at {P15_MOTION_FPS} fps, convert_motion "
+            f"and resample_motion to 30 fps ({n_30} frames), create_avatar, then "
+            f"render_motion of {P15_MOTION_FRAMES} frames: "
+            + "; ".join(f"{s}^2 frames {shapes[s][0][1:3]}, refiner at {shapes[s][1]}"
+                        for s in P15_MOTION_SIZES)
+            + f"; in {time.perf_counter() - t0:.1f} s")
+
+    # -- 4. metrics on step 1's dumps (no LPIPS-vgg weights here: LPIPS skipped)
+    outs = metrics.main(["-m", str(self_dir), "--pretrained_dir", str(work / "no_lpips")])
+    agg = outs[str(self_dir)]["aggregate"]
+    if not all(math.isfinite(agg[k]) for k in ("psnr", "ssim", "mae")) \
+            or agg["lpips"] is not None or "lpips_skipped" not in agg \
+            or not all((self_dir / v / "results.json").is_file() for v in videos) \
+            or not (self_dir / "results.json").is_file():
+        raise SystemExit(f"[15] metrics: {agg}")
+    say(15, f"metrics over {len(videos)} scenes: psnr {agg['psnr']:.4f}, ssim "
+            f"{agg['ssim']:.5f}, mae {agg['mae']:.5f}; LPIPS skipped (no lpips_vgg.pt)")
+
+    # -- 5. the app service: one cross-reenactment, polled until done
+    t0 = time.perf_counter()
+    zero_launches()
+    svc = app.GenerationService(types.SimpleNamespace(
+        model_path=str(run), synthetic_assets=True, allow_random_weights=False,
+        save_dir=str(out / "app"), max_frames=P15_FRAMES, device="cuda"))
+    key = svc.submit(str(data), str(data))
+    polls, path, state = 0, None, "running"
+    while time.perf_counter() - t0 < APP_TIMEOUT_S:
+        _, path = svc.check_status(data.name, data.name)
+        state = svc.jobs[key]["state"]
+        polls += 1
+        if path is not None and state != "done":
+            raise SystemExit(f"[15] app: the video came back while the job was {state}")
+        if path is not None or state == "failed":
+            break
+        time.sleep(APP_POLL_S)
+    got = read_launches()
+    if state != "done" or path is None:
+        raise SystemExit(f"[15] app: job {svc.jobs[key]}, path {path}")
+    v = read_video(path)
+    if v.frames.shape != (P15_FRAMES, size, size, 3) or got != driver_launches(2, P15_FRAMES):
+        raise SystemExit(f"[15] app: video {v.frames.shape}, launches {got}")
+    count(got)
+    del svc
+    torch.cuda.empty_cache()
+    say(15, f"app service: one cross-reenactment of {P15_FRAMES} frames done in "
+            f"{time.perf_counter() - t0:.1f} s over {polls} polls {APP_POLL_S * 1e3:.0f} ms "
+            f"apart; the video came back only with the job done, and reads back whole")
+
+    # -- 6. micro: cli.test on the card against the CPU from one port checkpoint
+    t0 = time.perf_counter()
+    mdata, mmodel = out / "micro_ds", out / "micro_model"
+    write_synthetic_dataset(str(mdata), n_videos=1, n_frames=4, image_size=48, n_shape=8,
+                            n_exp=4)
+    mcfg = load_config(str(MICRO_CONFIG), {"DATASET": {"data_path": str(mdata)}})
+    mmodel.mkdir()
+    mcfg._dump(str(mmodel / "config.yaml"))
+    mrt = init_params(build_runtime(mcfg, synthetic_assets=True, device="cpu"), seed=0)
+    CheckpointManager(str(mmodel)).save_latest(make_train_state(mrt.model), 0)
+    del mrt
+    zero_launches()
+    for dev in ("cuda", "cpu"):
+        test_cli.main(["-m", str(mmodel), "--data_path", str(mdata), "-s",
+                       str(out / f"micro_{dev}"), "--synthetic_assets", "--device", dev])
+        if dev == "cuda":
+            got = read_launches()
+    if got != driver_launches(2, 4 + 1):
+        raise SystemExit(f"[15] micro on the card: launches {got}")
+    count(got)
+    limit = SMALL_CREATE_TOL * 255 + 1
+    worst = 0
+    for sub in ("render", "gt"):
+        names = pngs(out / "micro_cuda" / "vid000" / sub)
+        if len(names) != 4 or names != pngs(out / "micro_cpu" / "vid000" / sub):
+            raise SystemExit(f"[15] micro {sub}: {names}")
+        for name in names:
+            a, b = (codec.read_rgb(str(out / f"micro_{d}" / "vid000" / sub / name)).astype(int)
+                    for d in ("cuda", "cpu"))
+            worst = max(worst, int(np.abs(a - b).max()))
+    if not worst <= limit:
+        raise SystemExit(f"[15] micro PNGs on the card vs the CPU differ by {worst} levels "
+                         f"(limit {limit:.3f})")
+    say(15, f"micro cli.test (micro_synthetic.yaml, a seed-0 port checkpoint) with --device "
+            f"cuda and --device cpu: every render and gt PNG pair within {worst} levels "
+            f"(limit SMALL_CREATE_TOL x 255 + 1 = {limit:.3f}); on the card launches {got}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    return time.perf_counter() - t15, total
 
 
 def main():
@@ -2821,19 +3192,28 @@ def main():
     say(13, f"phase 13 in {config_runtime():.1f} s on {smi}")
 
     # ---- 14. the data layer and the config-driven, loader-driven trainer ----
-    t14, p14_launches = data_and_trainer()
-    say(14, f"phase 14 in {t14:.1f} s on {smi}; its launches {p14_launches}")
+    # ---- 15. the inference drivers and entry points, on phase 14's dataset and run ----
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="p14_", dir=ROOT / "build"))
+    try:
+        t14, p14_launches = phase14(work)
+        say(14, f"phase 14 in {t14:.1f} s on {smi}; its launches {p14_launches}")
+        t15, p15_launches = drivers(work, seq_ms, med_create)
+        say(15, f"phase 15 in {t15:.1f} s on {smi}; its launches {p15_launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1018",
-         "launches": launches["K1"] + p14_launches["K1"],
+         "launches": launches["K1"] + p14_launches["K1"] + p15_launches["K1"],
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None, **occ["K1"], "at_tiles": at_tiles},
         {"name": "K2 face gather", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
-         "replaces": "guava_renderer_tpu/ops/facegather.py:125", "launches": launches["K2"],
+         "replaces": "guava_renderer_tpu/ops/facegather.py:125",
+         "launches": launches["K2"] + p15_launches["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms, "floor_ms": k2_floor_ms, **k2_occ},
         {"name": "K3 tile blend backward", "route": "cuda",
@@ -2852,7 +3232,7 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39",
          "launches": (create_launches + train_launches["K5"] + accum_launches["K5"]
-                      + p14_launches["K5"]),
+                      + p14_launches["K5"] + p15_launches["K5"]),
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None, "model_cull": cull5,
          **k5_occ},

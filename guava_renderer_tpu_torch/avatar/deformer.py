@@ -177,3 +177,11 @@ def deform_with_vertices(
         opacity=torch.cat([avatar.vtx_opacity, uv_op], dim=1),
         colors=torch.cat([avatar.vtx_colors, avatar.uv_colors], dim=1),
     )
+
+
+def canonical_gaussians(avatar: GaussianAvatar, faces: torch.Tensor) -> GaussianSet:
+    """Canonical-space Gaussians: the avatar on its own vertices with identity
+    transforms, through the row gather (ref: ubody_gaussian.py:291-313)."""
+    B, V = avatar.vtx_positions.shape[:2]
+    eye = torch.eye(4, dtype=avatar.vtx_positions.dtype, device=avatar.vtx_positions.device)
+    return deform_with_vertices(avatar, avatar.vtx_positions, eye.expand(B, V, 4, 4), faces)

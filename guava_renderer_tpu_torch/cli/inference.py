@@ -1,5 +1,5 @@
-"""One-shot avatar creation and per-frame rendering (counterpart of
-`guava_renderer_tpu/cli/inference.py:FramePipeline`).
+"""One-shot avatar creation, per-frame rendering and the inference drivers
+(counterpart of `guava_renderer_tpu/cli/inference.py`).
 
 Creation is: EHM forward -> mesh z-buffer visibility (kernel K5) ->
 DINO+DPT encoder -> vertex and UV branches -> prune -> face-sort plan.
@@ -7,12 +7,23 @@ A frame is: EHM forward -> deform (planned face gather, kernel K2) ->
 project -> bin -> tile blend (kernel K1) -> refiner (StyleUNet-small by
 default; the renderer's options choose SimpleUNet, another refiner size and
 a bf16 refiner).
+
+The drivers (ref: main/test.py:21-278) run that pipeline over a dataset:
+`render_set` is the timed self-reenactment (a warm-up and a timed creation,
+the avatar's PLY, a warm-up and timed frames, gt/ and render/ PNGs, a
+side-by-side MP4 and speed_info.json with {infer_time ms, render_speed
+fps}); `render_cross_set` drives one identity with another video's motion;
+`render_novel_views` orbits the camera. Each builds one
+`FramePipeline.from_runtime(rt)` a call. Times are taken with the device
+synchronized (`utils/logging_utils.py:SpeedMeter`).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
+import numpy as np
 import torch
 
 from ..avatar.deformer import deform_avatar, sort_avatar_by_plan
@@ -21,9 +32,14 @@ from ..avatar.renderer import GaussianRenderer, NeuralRefiner
 from ..avatar.state import GaussianAvatar, prune_avatar
 from ..bodymodel.ehm import BodyParams, EhmModel, FlameParams
 from ..core.cameras import Camera
+from ..data.codec import write_image
 from ..device import resolve_device
 from ..ops.facegather import build_face_sort_plan, compact_faces
 from ..ops.gsplat import RasterizeSettings
+from ..utils.camera_orbit import generate_novel_view_poses
+from ..utils.logging_utils import SpeedMeter
+from ..utils.ply import save_gaussian_ply
+from ..utils.video import to_uint8, write_video
 
 # identity/pose keys a target record may carry
 _PARAM_KEYS = (
@@ -178,3 +194,181 @@ class FramePipeline:
         if group < 1:
             raise ValueError(f"group must be >= 1, got {group}")
         return [self.render_frame(avatar, t) for t in targets]
+
+
+def _save_png(path: str, img) -> None:
+    """[0, 1] RGB -> PNG, quantized by truncation as the JAX package's
+    `_save_png` does (its pixels; the file's bytes are the port's codec's)."""
+    write_image(path, to_uint8(img))
+
+
+_write_video = write_video
+
+
+def _pipeline(rt, params) -> FramePipeline:
+    """The drivers' pipeline over the runtime's modules. `params` is what
+    `cli/context.py:load_model_params` returned: those same modules."""
+    if params is not None and (params["inferer"] is not rt.inferer
+                               or params["renderer"] is not rt.renderer):
+        raise ValueError("params must be the runtime's own modules, as "
+                         "load_model_params(rt, ...) returns them")
+    return FramePipeline.from_runtime(rt)
+
+
+def infer_avatar(rt, params, source: dict, prune: bool = True):
+    """Convenience wrapper (one-off; loops should hold a FramePipeline)."""
+    return _pipeline(rt, params).infer_avatar(source, prune=prune)
+
+
+def render_frame(rt, params, avatar, target: dict) -> dict:
+    """Convenience wrapper (one-off; loops should hold a FramePipeline)."""
+    out = _pipeline(rt, params).render_frame(avatar, target)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _timed_creation(pipe: FramePipeline, speed: SpeedMeter, source: dict):
+    """A warm-up creation, then the timed one (ref: test.py:41-50)."""
+    pipe.infer_avatar(source)
+    with speed.time_infer():
+        avatar, _ = pipe.infer_avatar(source)
+    return avatar
+
+
+def _export_ply(path: str, avatar, faces) -> None:
+    from ..avatar.deformer import canonical_gaussians
+
+    with torch.no_grad():
+        gs = canonical_gaussians(avatar, faces)
+    save_gaussian_ply(path, *(t[0].cpu().numpy() for t in (
+        gs.xyz, gs.colors[..., :3], gs.opacity, gs.scaling, gs.rotation)))
+
+
+def _visible_devices(device: torch.device) -> int:
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
+               max_frames: int | None = None, export_ply: bool = True,
+               dp_frames: bool = False, group_frames: int = 0) -> dict:
+    """Self-reenactment over the test frames of each video (ref: test.py:30-94).
+
+    group_frames=G>1 renders through `FramePipeline.render_frames` in groups
+    of G, timed as one region per call as the JAX package times it.
+    dp_frames with one visible device renders sequentially, as the JAX
+    package does with one device; the frames-data-parallel render over
+    several is module slice 10 and raises here."""
+    os.makedirs(save_path, exist_ok=True)
+    pipe = _pipeline(rt, params)
+    if dp_frames and _visible_devices(pipe.device) > 1:
+        raise NotImplementedError(
+            "dp_frames over more than one device is not ported yet (module slice 10: "
+            "parallel/batch_render.py)")
+
+    by_video: dict[str, list[int]] = {}
+    for i, key in enumerate(dataset.frames):
+        by_video.setdefault(key.split("/")[0], []).append(i)
+
+    results = {}
+    for vid, idxs in by_video.items():
+        speed = SpeedMeter(pipe.device)
+        scene_dir = os.path.join(save_path, vid)
+        rdir = os.path.join(scene_dir, saving_name)
+        gdir = os.path.join(scene_dir, "gt")
+        os.makedirs(rdir, exist_ok=True)
+        os.makedirs(gdir, exist_ok=True)
+
+        avatar = _timed_creation(pipe, speed, dataset[idxs[0]]["source"])
+        if export_ply:
+            _export_ply(os.path.join(scene_dir, "avatar.ply"), avatar, pipe.faces)
+
+        sel = idxs if max_frames is None else idxs[:max_frames]
+        frames = []
+
+        def dump(i, rec, out):
+            name = f"{i:06d}.png"
+            gt = to_uint8(np.asarray(rec["target"]["image"]) * np.asarray(rec["target"]["mask"]))
+            render = to_uint8(out["render"].cpu().numpy())
+            _save_png(os.path.join(gdir, name), gt)
+            _save_png(os.path.join(rdir, name), render)
+            frames.append(np.concatenate([gt, render], axis=1))
+
+        if group_frames > 1 and sel:
+            recs = [dataset[i] for i in sel]
+            targets = [r["target"] for r in recs]
+            pipe.render_frames(avatar, targets[:group_frames], group_frames)   # warm-up
+            with speed.time_frames(len(sel)):
+                outs = pipe.render_frames(avatar, targets, group_frames)
+            for i, rec, out in zip(sel, recs, outs):
+                dump(i, rec, out)
+        else:
+            if sel:        # warm-up, so the timed loop measures the steady state
+                pipe.render_frame(avatar, dataset[sel[0]]["target"])
+            for i in sel:
+                rec = dataset[i]
+                with speed.time_frame():
+                    out = pipe.render_frame(avatar, rec["target"])
+                dump(i, rec, out)
+        _write_video(os.path.join(scene_dir, f"{vid}_compare.mp4"), frames)
+        speed.dump(os.path.join(scene_dir, "speed_info.json"))
+        results[vid] = {"frames": len(sel), "infer_time_ms": speed.infer_time_ms,
+                        "render_fps": speed.render_fps}
+    return results
+
+
+def change_id_info(target_params: dict, source_params: dict) -> dict:
+    """Swap identity fields from the source into the target motion
+    (ref: main/test.py:21-28)."""
+    out = dict(target_params)
+    for k in ("shape", "joints_offset", "head_scale", "hand_scale", "flame_shape"):
+        if k in source_params:
+            out[k] = source_params[k]
+    return out
+
+
+def render_cross_set(rt, params, source_dataset, target_dataset, save_path: str,
+                     keep_source_cam: bool = False, max_frames: int | None = None) -> None:
+    """Cross-reenactment (ref: main/test.py:96-139), with speed_info.json as
+    the self-reenactment writes it."""
+    os.makedirs(save_path, exist_ok=True)
+    pipe = _pipeline(rt, params)
+    speed = SpeedMeter(pipe.device)
+    src = source_dataset[0]
+    avatar = _timed_creation(pipe, speed, src["source"])
+    n = len(target_dataset) if max_frames is None else min(max_frames, len(target_dataset))
+    frames = []
+    for i in range(n):
+        tgt = dict(target_dataset[i]["target"])
+        tgt["params"] = change_id_info(tgt["params"], src["source"]["params"])
+        if keep_source_cam:
+            tgt["w2c"] = src["source"]["w2c"]
+        with speed.time_frame():
+            out = pipe.render_frame(avatar, tgt)
+        render = to_uint8(out["render"].cpu().numpy())
+        _save_png(os.path.join(save_path, f"{i:06d}.png"), render)
+        frames.append(render)
+    _write_video(os.path.join(save_path, "cross_reenact.mp4"), frames)
+    speed.dump(os.path.join(save_path, "speed_info.json"))
+
+
+def render_novel_views(rt, params, dataset, save_path: str, static: bool = False,
+                       frame_idx: int = 0, num_keyframes: int = 120) -> None:
+    """Orbit renders, static pose or animated (ref: main/test.py:141-216),
+    with speed_info.json."""
+    os.makedirs(save_path, exist_ok=True)
+    pipe = _pipeline(rt, params)
+    speed = SpeedMeter(pipe.device)
+    first = dataset[frame_idx]
+    avatar = _timed_creation(pipe, speed, first["source"])
+    c2w = np.linalg.inv(np.asarray(first["target"]["w2c"]))
+    frames = []
+    for i, w2c in enumerate(generate_novel_view_poses(c2w, num_keyframes=num_keyframes)):
+        rec = first if static else dataset[min(i, len(dataset) - 1)]
+        tgt = dict(rec["target"])
+        tgt["w2c"] = w2c
+        with speed.time_frame():
+            out = pipe.render_frame(avatar, tgt)
+        render = to_uint8(out["render"].cpu().numpy())
+        _save_png(os.path.join(save_path, f"{i:06d}.png"), render)
+        frames.append(render)
+    _write_video(os.path.join(save_path, "novel_views.mp4"), frames)
+    speed.dump(os.path.join(save_path, "speed_info.json"))

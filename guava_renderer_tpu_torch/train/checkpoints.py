@@ -6,6 +6,11 @@ validation SSIM with the old best deleted, named snapshots, and a resume
 that restores the iteration. Files are `torch.save` of the train state's
 `state_dict()` under `<run_dir>/checkpoints/<name>.pt`; the format is this
 package's own.
+
+`save_avatar` / `load_avatar` keep a created avatar (the counterpart of the
+JAX `save_pytree` / `load_pytree`, which write an orbax directory): one
+`torch.save` file of the avatar's fields as CPU tensors, read back with
+`weights_only=True`.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import os
 import re
 
 import torch
+
+from ..avatar.state import GaussianAvatar
 
 _SUFFIX = ".pt"
 
@@ -70,3 +77,16 @@ class CheckpointManager:
         vals = [float(m.group(1)) for m in
                 (re.match(r"best_\d+_(-?[\d.]+)\.pt$", b) for b in self._list("best_")) if m]
         return max(vals) if vals else -1.0
+
+
+def save_avatar(path: str, avatar: GaussianAvatar) -> None:
+    """Write the avatar's fields as CPU tensors to one file (whole, or not at all)."""
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in avatar._asdict().items()}, tmp)
+    os.replace(tmp, path)
+
+
+def load_avatar(path: str, device="cpu") -> GaussianAvatar:
+    """The avatar `save_avatar` wrote, on `device`."""
+    fields = torch.load(path, map_location="cpu", weights_only=True)
+    return GaussianAvatar(**{k: fields[k].to(device) for k in GaussianAvatar._fields})

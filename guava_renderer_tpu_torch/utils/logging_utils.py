@@ -57,23 +57,50 @@ class MovingAverageMeter:
 
 class SpeedMeter:
     """Accumulates per-stage wall times; writes speed_info.json
-    ({'infer_time' ms, 'render_speed' fps}, ref: main/test.py:90-94)."""
+    ({'infer_time' ms, 'render_speed' fps}, ref: main/test.py:90-94).
 
-    def __init__(self):
+    On a CUDA `device` each timed region synchronizes the device when it
+    starts and before it reads the clock at its end (the JAX package's
+    `block_until_ready`): kernels are launched asynchronously, and without
+    the wait the clock measures how fast the host queues them."""
+
+    def __init__(self, device=None):
         self.infer_time_ms: float | None = None
         self._render_times: list[float] = []
+        self._device = device
+
+    def _sync(self) -> None:
+        if self._device is not None:
+            import torch
+
+            dev = torch.device(self._device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     @contextlib.contextmanager
     def time_infer(self):
+        self._sync()
         t0 = time.time()
         yield
+        self._sync()
         self.infer_time_ms = (time.time() - t0) * 1000.0
 
     @contextlib.contextmanager
     def time_frame(self):
+        self._sync()
         t0 = time.time()
         yield
+        self._sync()
         self._render_times.append(time.time() - t0)
+
+    @contextlib.contextmanager
+    def time_frames(self, n: int):
+        """Time one region that produces n frames (a grouped render)."""
+        self._sync()
+        t0 = time.time()
+        yield
+        self._sync()
+        self.add_frames(n, time.time() - t0)
 
     def add_frames(self, n: int, total_seconds: float) -> None:
         """Record n frames produced by ONE batched device call

@@ -3,6 +3,7 @@
 import ast
 import os
 import tempfile
+import types
 from pathlib import Path
 
 import pytest
@@ -52,6 +53,18 @@ def test_training_modules_are_in_the_walk(rel):
     assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
 
 
+DRIVER_MODULES = ("motion.py", "utils/camera_orbit.py", "utils/video.py", "avatar/deformer.py",
+                  "train/checkpoints.py", "cli/inference.py", "cli/test.py",
+                  "cli/create_avatar.py", "cli/render_motion.py", "cli/convert_motion.py",
+                  "cli/resample_motion.py", "cli/metrics.py", "cli/metrics_face.py",
+                  "cli/app.py")
+
+
+@pytest.mark.parametrize("rel", DRIVER_MODULES)
+def test_driver_modules_are_in_the_walk(rel):
+    assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
+
+
 def _entry_points():
     from guava_renderer_tpu_torch import testing
     from guava_renderer_tpu_torch.benchscene import (
@@ -67,6 +80,9 @@ def _entry_points():
     from guava_renderer_tpu_torch.cli import train as cli_train
     from guava_renderer_tpu_torch.cli.trainer_loop import run_training
     from guava_renderer_tpu_torch.tools import make_teacher_dataset
+    from guava_renderer_tpu_torch.cli import app, create_avatar, metrics, render_motion
+    from guava_renderer_tpu_torch.cli import test as cli_test
+    from guava_renderer_tpu_torch.cli.inference import render_set
     import bench_torch
 
     micro = str(ROOT / "configs" / "train" / "micro_synthetic.yaml")
@@ -96,6 +112,16 @@ def _entry_points():
             ["--out", os.path.join(scratch, "teacher"), "-c", micro]),
         "run_training": lambda: run_training(
             build_runtime(load_config(micro), synthetic_assets=True), None, None, scratch),
+        "cli.test": lambda: cli_test.main(["-c", micro, "--data_path", scratch,
+                                           "--synthetic_assets"]),
+        "cli.create_avatar": lambda: create_avatar.main(["-m", micro, "--data_path", scratch,
+                                                         "--synthetic_assets"]),
+        "cli.render_motion": lambda: render_motion.main(["-a", scratch, "-m", micro,
+                                                         "--synthetic_assets"]),
+        "cli.metrics": lambda: metrics.main(["-m", scratch]),
+        "cli.app": lambda: app.GenerationService(types.SimpleNamespace(model_path=micro)),
+        "render_set": lambda: render_set(
+            build_runtime(load_config(micro), synthetic_assets=True), None, None, scratch),
     }
 
 
@@ -106,7 +132,9 @@ def _entry_points():
                                   "lpips_from_flax", "tools.ee_probe", "tools.dma_bench",
                                   "tools.sort_payload_bench", "tools.mosaic_probe",
                                   "build_runtime", "bench_torch", "cli.train",
-                                  "tools.make_teacher_dataset", "run_training"])
+                                  "tools.make_teacher_dataset", "run_training", "cli.test",
+                                  "cli.create_avatar", "cli.render_motion", "cli.metrics",
+                                  "cli.app", "render_set"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""
