@@ -30,7 +30,7 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      avatar 5 times, with launch counts, ms/creation, a per-stage split
      and one frame rendered from the created avatar;
   7. create then render at 64^2 and narrow widths, on the GPU against the
-     CPU;
+     CPU (the raster's outputs, then the refiner on one input in float64);
   8. the training step at full width: 3 warm-up and 5 timed steps of batch 1
      through `train_on_batches` (creation, deform, 32-channel rasterization
      forward and backward, refiner, LPIPS loss, Adam over the inferer and
@@ -83,7 +83,8 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      files and decodes byte-equal to the CPU build's); `run_training` on
      micro_synthetic.yaml for 2 iterations on the card and on the CPU from
      one port checkpoint at the config's learning rate (loader batches
-     bit-equal, losses and validation PSNR and SSIM within MICRO_LOSS_RTOL);
+     bit-equal, losses and validation PSNR within MICRO_LOSS_RTOL, SSIM within
+     MICRO_SSIM_RTOL), and on the card with TF32 forced on, which they must see;
      the teacher tool at teacher512_synthetic.yaml
      (2 videos x 8 frames at 512^2); two steps of one sample from the
      flax-scale init; then `python -m guava_renderer_tpu_torch.cli.train`
@@ -112,10 +113,23 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      through the app service polled every 50 ms (the video only with its job
      done), and cli.test on micro_synthetic.yaml on the card against the CPU
      from one seed-0 checkpoint (PNGs within SMALL_CREATE_TOL x 255 + 1 levels).
-     It prints ms/creation and fps beside phases 6 and 4.
+     It prints ms/creation and fps beside phases 6 and 4;
+ 16. the real-schema runtime: SMPL-X and FLAME files written in the published
+     schema at the published counts (testing.write_schema_assets: 10,475 and
+     5,023 vertices, 20,908 and 9,976 faces, 400 shape components), then
+     build_runtime on configs/train/ubody_512.yaml pointed at them (the loaders'
+     host time split into the files' read and the UV fill), init_params seed 0,
+     one warm-up and three timed creations (the UV rows kept, the visible-texel
+     share, and the rows that init_params seeds 1 and 2 keep) and 20 frames,
+     with launch counts, ms/creation and its split, ms/frame on the host clock
+     and device busy; K5 on
+     the creation's z-buffer inputs, K2 on frame 0's face table and K1 on frame
+     0 against their plain versions; then the same files at micro widths on the
+     card against the CPU (UV terms where the texel masks agree).
 Needs a CUDA device; run from the repository root.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -147,7 +161,9 @@ from guava_renderer_tpu_torch.avatar.inferer import (  # noqa: E402
 from guava_renderer_tpu_torch.avatar.renderer import NeuralRefiner  # noqa: E402
 from guava_renderer_tpu_torch.benchscene import (  # noqa: E402
     INVTANFOV, UBODY_LADDER, make_bench_scene, make_create_scene, make_train_scene)
+from guava_renderer_tpu_torch.bodymodel import data as bmdata  # noqa: E402
 from guava_renderer_tpu_torch.bodymodel.ehm import ehm_forward  # noqa: E402
+from guava_renderer_tpu_torch.cli import context as ctx_module  # noqa: E402
 from guava_renderer_tpu_torch.cli.context import (  # noqa: E402
     build_runtime, init_params, load_model_params)
 from guava_renderer_tpu_torch.cli.inference import (  # noqa: E402
@@ -162,6 +178,7 @@ from guava_renderer_tpu_torch.data.loader import PrefetchLoader, endless, to_dev
 from guava_renderer_tpu_torch.data.store import RecordStore, RecordStoreWriter  # noqa: E402
 from guava_renderer_tpu_torch.data.synthetic import write_synthetic_dataset  # noqa: E402
 from guava_renderer_tpu_torch.data.tracked import TrackedVideoDataset, build_dataset  # noqa: E402
+from guava_renderer_tpu_torch.device import resolve_device  # noqa: E402
 from guava_renderer_tpu_torch.kernels import blend as k1  # noqa: E402
 from guava_renderer_tpu_torch.kernels import build  # noqa: E402
 from guava_renderer_tpu_torch.kernels import copy_probe as kt1  # noqa: E402
@@ -178,10 +195,11 @@ from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
     MAX_RESIDENT_ROWS, RasterizeSettings, bin_gaussians, pack_rows, rasterize, remap_resident,
     resident_count, resident_ids, resident_keys, round_colors_bf16, stream_rows)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
+from guava_renderer_tpu_torch.ops import meshraster as opsmesh  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import (  # noqa: E402
     bin_mesh, bin_triangles, rasterize_mesh)
 from guava_renderer_tpu_torch.testing import (  # noqa: E402
-    make_micro_pipeline, pad_instances, zbuffer_scenes)
+    SCHEMA_COUNTS, make_micro_pipeline, pad_instances, write_schema_assets, zbuffer_scenes)
 from guava_renderer_tpu_torch.tools import (  # noqa: E402
     device_ms, dma_bench, ee_probe, mosaic_probe, profile_by_name, profile_window,
     sort_payload_bench)
@@ -248,6 +266,9 @@ TRAIN_LR = 1e-4                # configs/train/ubody_512.yaml
 # with UV offsets of 1e4 and its second step overflows float32 (init_params_)
 TRAIN_INIT_GAIN = 0.5
 MICRO_LOSS_RTOL = 1e-4
+# the micro run's validation SSIM, relative: its random renders score ~1.3e-4, the card and
+# the CPU lie ~2.2e-3 apart relatively, and TF32 on the card moves it ~3x
+MICRO_SSIM_RTOL = 1e-2
 # 32^2 step, GPU against CPU, per parameter: rtol and atol as a share of the
 # gradient's largest entry (cuDNN's and the CPU's convolutions sum in other
 # orders, and the blend backward adds atomically)
@@ -278,6 +299,12 @@ GOLDEN = ROOT / "tests" / "golden" / "raster_scene_v1.npz"
 GOLDEN_ATOL = 2e-5
 GOLDEN_LADDER = ((16, 16), (32, 16), (48, 16))
 SMALL_CREATE_TOL = 1e-3        # GPU vs CPU through ~40 float32 layers and the blend
+# phase 7's frames, GPU vs CPU, with the refiner at init_params_'s training gain: at the
+# flax gain (1) its first activations reach 1.5e6 on that scene, and its float32 output lies
+# ~1.6e-3 from float64 on either device; at 0.5 the two devices' frames lie ~7e-7 apart, and
+# TF32 moves the card's ~9e-5
+P7_REFINER_GAIN = 0.5
+P7_FRAME_TOL = 1e-5
 # a frame of an avatar created with random weights is rendered only if it
 # bins at most this many (Gaussian, tile) instances
 INSTANCE_BUDGET = 64_000_000
@@ -375,8 +402,39 @@ TEST_WRAPPER = (
     "alter_sys=True)\n")
 
 
+# phase 16: the real-schema runtime (SMPL-X/FLAME files in the published schema at the
+# published counts, testing.write_schema_assets) under TRAIN_CONFIG
+P16_SEED = 16
+P16_CREATIONS = 3              # timed, after one warm-up
+P16_FRAMES = 20
+
+
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def tf32_forced():
+    """TF32 on for cuDNN and cuBLAS, and kept on through every call of the port's
+    resolve_device (which turns it off) meanwhile: a control a card-vs-CPU hold must see."""
+    real = resolve_device
+
+    def forced(device="cuda"):
+        dev = real(device)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        return dev
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("guava_renderer_tpu_torch") and getattr(m, "resolve_device", None) is real]
+    for m in mods:
+        m.resolve_device = forced
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.resolve_device = real
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -1677,8 +1735,9 @@ def parse_train_log(lines):
 
 def micro_trainer_gpu_vs_cpu(work):
     """2 iterations of the config-driven run_training on micro_synthetic.yaml, on the
-    card and on the CPU from one port checkpoint -> {"gpu", "cpu"}: each run's losses,
-    loader batches (on the CPU), validations and (the card's) launches."""
+    card, on the CPU and on the card with TF32 forced on, from one port checkpoint ->
+    {"gpu", "cpu", "tf32"}: each run's losses, loader batches (on the CPU), validations
+    and (the card's) launches."""
     data = str(work / "micro_ds")
     if not os.path.isdir(data):
         write_synthetic_dataset(data, n_videos=1, n_frames=4, image_size=48, n_shape=8, n_exp=4)
@@ -1690,7 +1749,7 @@ def micro_trainer_gpu_vs_cpu(work):
     del rt
     seen = {}
     real_loss_fn, real_validation = trainer_loop.make_loss_fn, trainer_loop.run_validation
-    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV), ("tf32", DEV)):
         rec = seen[key] = {"losses": [], "batches": [], "val": []}
 
         def recording_loss_fn(*a, rec=rec, **kw):
@@ -1710,12 +1769,13 @@ def micro_trainer_gpu_vs_cpu(work):
         trainer_loop.make_loss_fn = recording_loss_fn
         trainer_loop.run_validation = recording_validation
         try:
-            if key == "gpu":
-                k1.launches = k1.bwd_launches = k5.launches = 0
-            rt = build_runtime(cfg, synthetic_assets=True, device=dev)
-            trainer_loop.run_training(rt, build_dataset(cfg, "train"),
-                                      build_dataset(cfg, "valid"),
-                                      str(work / f"micro_{key}"), basemodel=base, max_iters=2)
+            k1.launches = k1.bwd_launches = k5.launches = 0
+            with tf32_forced() if key == "tf32" else contextlib.nullcontext():
+                rt = build_runtime(cfg, synthetic_assets=True, device=dev)
+                trainer_loop.run_training(rt, build_dataset(cfg, "train"),
+                                          build_dataset(cfg, "valid"),
+                                          str(work / f"micro_{key}"), basemodel=base,
+                                          max_iters=2)
             if key == "gpu":
                 torch.cuda.synchronize()
                 rec["launches"] = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
@@ -1725,29 +1785,44 @@ def micro_trainer_gpu_vs_cpu(work):
     return seen
 
 
+def micro_terms(seen, key):
+    """The relative differences of run `key`'s losses, validation PSNR and validation SSIM
+    from the CPU run's, and whether they lie within MICRO_LOSS_RTOL (losses, PSNR) and
+    MICRO_SSIM_RTOL (SSIM)."""
+    g, c = seen[key], seen["cpu"]
+    if not all(math.isfinite(v) for v in g["losses"] + c["losses"]):
+        raise SystemExit(f"[14] micro: losses {g['losses']} / {c['losses']}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
+    psnr_err, ssim_err = (abs(g["val"][-1][k] - c["val"][-1][k]) / abs(c["val"][-1][k])
+                          for k in ("psnr", "ssim"))
+    within = max(loss_err, psnr_err) <= MICRO_LOSS_RTOL and ssim_err <= MICRO_SSIM_RTOL
+    return loss_err, psnr_err, ssim_err, within
+
+
 def micro_check(seen):
     """Phase 14's micro comparison: the loader batches bit-equal, the losses and the
-    validation PSNR and SSIM within MICRO_LOSS_RTOL, the card's launches. -> the worst
-    relative differences of the losses, the PSNR and the SSIM."""
+    validation PSNR within MICRO_LOSS_RTOL and the SSIM within MICRO_SSIM_RTOL, the card's
+    launches; the run with TF32 forced on outside those limits. -> the worst relative
+    differences of the losses, the PSNR and the SSIM, then the TF32 run's."""
     g, c = seen["gpu"], seen["cpu"]
     same_batches = len(g["batches"]) == len(c["batches"]) == 2 and all(
         a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
         for a, b in zip(g["batches"], c["batches"]))
     if not same_batches:
         raise SystemExit("[14] micro: the card's loader batches differ from the CPU's")
-    if not all(math.isfinite(v) for v in g["losses"] + c["losses"]):
-        raise SystemExit(f"[14] micro: losses {g['losses']} / {c['losses']}")
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], c["losses"]))
-    psnr_err, ssim_err = (abs(g["val"][-1][k] - c["val"][-1][k]) / abs(c["val"][-1][k])
-                          for k in ("psnr", "ssim"))
-    if not max(loss_err, psnr_err, ssim_err) <= MICRO_LOSS_RTOL:
+    *errs, within = micro_terms(seen, "gpu")
+    if not within:
         raise SystemExit(f"[14] micro GPU vs CPU: losses {g['losses']} vs {c['losses']}, "
                          f"validation {g['val'][-1]} vs {c['val'][-1]}")
+    *tf32_errs, tf32_within = micro_terms(seen, "tf32")
+    if tf32_within:
+        raise SystemExit(f"[14] micro with TF32 forced on within the limits {tf32_errs}: the "
+                         f"hold cannot see TF32")
     # a step of batch 2: two K1 and two K3 launches (one an item), one K1 a validation item
     want = {"K1": 2 * 2 + 2, "K3": 2 * 2, "K5": (2 * 2 + 2) * k5.LAUNCHES}
     if g["launches"] != want:
         raise SystemExit(f"[14] micro on the card: launches {g['launches']}, expected {want}")
-    return loss_err, psnr_err, ssim_err
+    return (*errs, *tf32_errs)
 
 
 def flat_tree(tree, prefix=""):
@@ -1796,7 +1871,7 @@ def phase14(work):
 
     # -- 2. micro: the config-driven run_training on the card against the CPU
     seen = micro_trainer_gpu_vs_cpu(work)
-    loss_err, psnr_err, ssim_err = micro_check(seen)
+    loss_err, psnr_err, ssim_err, *tf32_errs = micro_check(seen)
     g, c = seen["gpu"], seen["cpu"]
     for k in launches:
         launches[k] += g["launches"][k]
@@ -1807,7 +1882,9 @@ def phase14(work):
             f"(worst rel {loss_err:.2e}); validation psnr "
             f"{g['val'][-1]['psnr']:.6f}/{c['val'][-1]['psnr']:.6f} (rel {psnr_err:.2e}), "
             f"ssim {g['val'][-1]['ssim']:.8f}/{c['val'][-1]['ssim']:.8f} (rel "
-            f"{ssim_err:.2e}); rtol {MICRO_LOSS_RTOL}; launches on the card {g['launches']}")
+            f"{ssim_err:.2e}); rtol {MICRO_LOSS_RTOL}, SSIM's {MICRO_SSIM_RTOL}; launches on "
+            f"the card {g['launches']}; the control with TF32 forced on: losses, psnr, ssim rel "
+            + ", ".join(f"{e:.2e}" for e in tf32_errs) + ", outside the limits as it must be")
 
     # -- 3. teacher512: the teacher tool, then the entry point in a subprocess
     t0 = time.perf_counter()
@@ -2487,6 +2564,241 @@ def drivers(work, frame_ms, create_ms):
     return time.perf_counter() - t15, total
 
 
+
+def real_schema(smi):
+    """Phase 16: build_runtime under TRAIN_CONFIG on SMPL-X/FLAME files written in the
+    published schema at the published counts; one warm-up and P16_CREATIONS timed
+    creations, then P16_FRAMES frames; K5 on this rig's z-buffer inputs, K2 on its face
+    table and K1 on frame 0 against their plain versions; the same files at micro widths
+    on the card against the CPU. Returns (seconds, the main path's launches)."""
+    t16 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="p16_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        paths = write_schema_assets(str(work), seed=P16_SEED)
+        write_s = time.perf_counter() - t0
+        counts = SCHEMA_COUNTS
+        over = {"MODEL": {"smplx_assets_dir": paths["smplx_dir"],
+                          "flame_assets_dir": paths["flame_dir"]}}
+        cfg = load_config(str(TRAIN_CONFIG)).merge(over)
+
+        # the host's asset load: the loaders' calls, the UV fill inside them
+        spent = {"load": 0.0, "uv_fill": 0.0}
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[key] += time.perf_counter() - t
+            return run
+
+        kept = (bmdata.uv_face_tables, ctx_module.load_smplx, ctx_module.load_flame)
+        bmdata.uv_face_tables = timed("uv_fill", kept[0])
+        ctx_module.load_smplx = timed("load", kept[1])
+        ctx_module.load_flame = timed("load", kept[2])
+        try:
+            t0 = time.perf_counter()
+            rt = build_runtime(cfg, device=DEV)
+            build_s = time.perf_counter() - t0
+        finally:
+            bmdata.uv_face_tables, ctx_module.load_smplx, ctx_module.load_flame = kept
+        read_s = spent["load"] - spent["uv_fill"]
+        V, F = rt.num_vertices, int(rt.smplx.faces.shape[0])
+        n_texels = int(rt.extras.uvmap_mask.sum())
+        want_v = counts["smplx_vertices"] + 120          # the 8 x 15 teeth rows
+        if (V, rt.flame.num_vertices, rt.smplx.n_shape, rt.smplx.n_exp) != \
+                (want_v, counts["flame_vertices"] + 120, 300, 50):
+            raise SystemExit(f"[16] the runtime's rig: V {V}, FLAME {rt.flame.num_vertices}, "
+                             f"shape/exp {rt.smplx.n_shape}/{rt.smplx.n_exp}")
+        say(16, f"{counts['smplx_vertices']}-vertex, {counts['smplx_faces']}-face SMPL-X and "
+                f"{counts['flame_vertices']}-vertex FLAME files written in {write_s:.2f} s; "
+                f"build_runtime({TRAIN_CONFIG.name}) on them in {build_s:.2f} s, of which the "
+                f"loaders {spent['load']:.3f} s host clock: npz/pkl/obj read and teeth "
+                f"{read_s:.3f} s, UV fill at {rt.cfg.MODEL.uvmap_size}^2 {spent['uv_fill']:.3f} "
+                f"s; V={V} F={F} (teeth included), {n_texels} chart texels; on {smi}")
+
+        init_params(rt, seed=0)
+        pipe = FramePipeline.from_runtime(rt)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[2, 3] = 30.0
+        source = {"image": np.random.default_rng(P16_SEED).uniform(
+            0, 1, (FEAT, FEAT, 3)).astype(np.float32), "w2c": w2c, "params": pose_params(300, 50)}
+        targets = [{"params": pose_params(300, 50, 0.01 * i), "w2c": w2c}
+                   for i in range(P16_FRAMES)]
+
+        # the main path: creations (K5), then frames (K1, K2), counted from zero
+        captured = []
+        real_zbuffer = opsmesh.mesh_zbuffer
+        k1.launches = k2.launches = k5.launches = 0
+        opsmesh.mesh_zbuffer = lambda *a: captured.append(a) or real_zbuffer(*a)
+        try:
+            avatar, extra = pipe.infer_avatar(source)                 # warm-up
+        finally:
+            opsmesh.mesh_zbuffer = real_zbuffer
+        n_kept = int(avatar.uv_valid.sum())
+        n_visible = int(extra["texel_mask"].sum())
+        create_ms = []
+        for _ in range(P16_CREATIONS):
+            (avatar, _), ms = timed_once(lambda: pipe.infer_avatar(source))
+            create_ms.append(ms)
+        check_avatar(avatar, "[16] creation")
+        if pipe.plan is None:
+            raise SystemExit("[16] the created avatar does not take the planned face gather")
+        pipe.render_frame(avatar, targets[0])                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pipe.render_frames(avatar, targets, group=4)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3 / P16_FRAMES
+        launches = {"K1": k1.launches, "K2": k2.launches, "K5": k5.launches}
+        n_create = P16_CREATIONS + 1
+        if launches != {"K1": P16_FRAMES + 1, "K2": P16_FRAMES + 1,
+                        "K5": n_create * k5.LAUNCHES}:
+            raise SystemExit(f"[16] launches {launches} for {n_create} creations and "
+                             f"{P16_FRAMES + 1} frames")
+        size = pipe.image_size
+        for out in outs:
+            v = out["render"]
+            if v.shape != (size, size, 3) or not bool(torch.isfinite(v).all()) \
+                    or float(v.min()) < 0.0 or float(v.max()) > 1.0:
+                raise SystemExit(f"[16] bad render {tuple(v.shape)}")
+        frames = iter(targets[:5])
+        busy, kernels_a_frame, _ = profile_window(
+            lambda: pipe.render_frame(avatar, next(frames)), 5)
+        split = creation_split(pipe, source, 1)
+        tile = rt.renderer.settings.tile
+        with torch.no_grad():
+            body, flame = _unpack_params(_batched_params(targets[0]["params"], DEV))
+            gs = deform_avatar(avatar, rt.ehm, pipe.faces, body, flame, plan=pipe.plan,
+                               compact_faces=pipe.cfaces)
+            cam = Camera.from_w2c(torch.as_tensor(w2c, device=DEV), pipe.tanfov, size, size)
+            n_inst = frame_instances(gs, cam, tile)
+        say(16, f"{n_create} creations ({P16_CREATIONS} timed: median "
+                f"{statistics.median(create_ms):.2f} ms, least {min(create_ms):.2f}, most "
+                f"{max(create_ms):.2f} ms host clock; split of one in ms, CUDA events: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                + f"), then {P16_FRAMES} {size}^2 frames through render_frames: "
+                f"{frame_ms:.3f} ms/frame host clock, {busy:.3f} ms/frame device busy, "
+                f"{kernels_a_frame:.0f} device kernels a frame; the avatar keeps {n_kept} UV "
+                f"rows ({avatar.uv_valid.shape[0]} with the pad) of {n_texels} chart texels, "
+                f"{n_visible} of them visible (share {n_visible / n_texels:.4f}); frame 0 bins "
+                f"{n_inst} instances at tile {tile}; launches {launches}; on {smi}")
+
+        # the three kernels on this rig's inputs against their plain versions
+        args5 = captured[0]
+        got5 = k5.mesh_zbuffer(*args5)
+        want5, k5_plain_ms = timed_once(lambda: k5.mesh_zbuffer_plain(*args5))
+        hit = want5[0] >= 0
+        if not torch.equal(got5[0], want5[0]) or not torch.equal(torch.isinf(got5[1]), ~hit):
+            raise SystemExit("[16] K5 differs from its plain version on the real-schema rig")
+        err5 = float((got5[1][hit] - want5[1][hit]).abs().max()) if bool(hit.any()) else 0.0
+        if not err5 <= K5_DEPTH_TOL:
+            raise SystemExit(f"[16] K5 depth max abs {err5} > {K5_DEPTH_TOL}")
+        k5_ms = cuda_ms(lambda: k5.mesh_zbuffer(*args5))
+        with torch.no_grad():
+            res = ehm_forward(rt.ehm, body, flame)
+            tri = res.vertices[0, pipe.cfaces.reshape(-1)].reshape(-1, 3, 3)
+            table = _face_table(tri).contiguous()
+            ids = pipe.plan.compact_ids
+            got2, want2 = k2.face_gather(table, ids), k2.face_gather_plain(table, ids)
+            if not torch.equal(got2, want2):
+                raise SystemExit(f"[16] K2 differs from its plain version: max abs "
+                                 f"{float((got2 - want2).abs().max())}")
+            k2_ms = cuda_ms(lambda: k2.face_gather(table, ids))
+            k2_plain_ms = cuda_ms(lambda: k2.face_gather_plain(table, ids))
+            proj = project_gaussians(gs.xyz[0], gs.scaling[0], gs.rotation[0], gs.opacity[0],
+                                     cam)
+            ranges, order = bin_gaussians(proj, size, size, tile)
+            rows = pack_rows(proj, gs.colors[0])
+            bg = torch.zeros(32, device=DEV)
+            got1 = k1.blend(rows, order, ranges, bg, size, size, tile)
+            want1, k1_plain_ms = timed_once(
+                lambda: k1.blend_plain(rows, order, ranges, bg, size, size, tile))
+            # the random weights give this avatar colours of ~1e4: each element is held to
+            # K1_TOL of its own magnitude, or to K1_TOL absolute where that is below 1
+            err1 = max(float((g - w).abs().max()) for g, w in zip(got1, want1))
+            rel1 = max(float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+                       for g, w in zip(got1, want1))
+            if not rel1 <= K1_TOL:
+                raise SystemExit(f"[16] K1 vs plain: max abs {err1}, {rel1} of an element's "
+                                 f"magnitude (floored at 1) > {K1_TOL}")
+            k1_ms = cuda_ms(lambda: k1.blend(rows, order, ranges, bg, size, size, tile))
+        say(16, f"K5 on the creation's z-buffer inputs ({args5[0].shape[0]} faces, "
+                f"{args5[1].shape[0]} instances, {args5[3]}x{args5[4]}, tile {args5[5]}): best "
+                f"instance equal to plain, depth max abs {err5:.3g} (tol {K5_DEPTH_TOL}), "
+                f"kernel {k5_ms:.4f} ms (median of 10), plain {k5_plain_ms:.1f} ms (one call); "
+                f"K2 on frame 0's face table (Fc={table.shape[0]}, N={ids.shape[0]}): equal "
+                f"to plain, kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms; K1 on frame 0 "
+                f"(P={rows.shape[0]}, instances={order.shape[0]}, tile {tile}): max abs vs plain "
+                f"{err1:.3g}, at most {rel1:.3g} of an element's magnitude floored at 1 (tol "
+                f"{K1_TOL}), "
+                f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms "
+                f"(one call); on {smi}")
+        # the rows kept hang on the random draw: opacities saturate to 0 or 1 by seed
+        kept_by_seed = {}
+        for seed in (1, 2):
+            init_params(rt, seed=seed)
+            kept_by_seed[seed] = int(pipe.infer_avatar(source)[0].uv_valid.sum())
+        say(16, f"UV rows kept of the {n_texels} chart texels by init_params seed: 0 {n_kept}, "
+                + ", ".join(f"{k} {v}" for k, v in kept_by_seed.items()) + f"; on {smi}")
+        del rt, pipe, avatar, extra, outs, got1, want1, got5, want5, args5, captured
+
+        # the same files at micro widths: the card against the CPU
+        micro = load_config(str(MICRO_CONFIG)).merge(over)
+        mw2c = np.eye(4, dtype=np.float32)
+        mw2c[2, 3] = 6.0
+        msrc = {"image": np.random.default_rng(1).uniform(0, 1, (28, 28, 3)).astype(np.float32),
+                "w2c": mw2c, "params": pose_params(300, 50)}
+        got = {}
+        for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
+            mrt = init_params(build_runtime(micro, device=dev), seed=0)
+            mpipe = FramePipeline.from_runtime(mrt)
+            full, mextra = mpipe.infer_avatar(msrc, prune=False)
+            pruned, _ = mpipe.infer_avatar(msrc)
+            out = mpipe.render_frame(pruned, {"params": pose_params(300, 50, 0.03), "w2c": mw2c})
+            got[key] = {"avatar": {k: v.cpu() for k, v in full._asdict().items()},
+                        "mask": mextra["texel_mask"].cpu().reshape(-1),
+                        "frame": {k: v.cpu() for k, v in out.items()}}
+        agree = got["cpu"]["mask"] == got["gpu"]["mask"]
+        field_err = {}
+        for k, c in got["cpu"]["avatar"].items():
+            g = got["gpu"]["avatar"][k]
+            if k.startswith("uv_") and c.dim() >= 2 and c.shape[1] == agree.shape[0]:
+                c, g = c[:, agree], g[:, agree]
+            if not c.is_floating_point():
+                if not torch.equal(c, g):
+                    raise SystemExit(f"[16] micro creation: {k} differs on the card")
+            elif k == "uv_scales":
+                field_err[k] = float(((g - c).abs() / c.abs().clamp(min=1e-12)).max())
+            else:
+                field_err[k] = float((g - c).abs().max())
+        worst = max(field_err, key=field_err.get)
+        if not field_err[worst] <= SMALL_CREATE_TOL:
+            raise SystemExit(f"[16] micro creation: {worst} card vs CPU {field_err[worst]} > "
+                             f"{SMALL_CREATE_TOL}")
+        n_differ = int((~agree).sum())
+        if n_differ == 0:
+            ferr = max(float((got["cpu"]["frame"][k] - got["gpu"]["frame"][k]).abs().max())
+                       for k in got["cpu"]["frame"])
+            if not ferr <= SMALL_CREATE_TOL:
+                raise SystemExit(f"[16] micro frame: card vs CPU max abs {ferr} > "
+                                 f"{SMALL_CREATE_TOL}")
+            frame_note = f"frame max abs {ferr:.3g}"
+        else:
+            frame_note = (f"the texel masks differ at {n_differ} texels, so the frame is "
+                          f"not held")
+        say(16, f"the files at micro widths ({micro.MODEL.image_size}^2, chart "
+                f"{micro.MODEL.uvmap_size}^2), create + frame on the card vs the CPU: avatar "
+                f"fields worst {worst} {field_err[worst]:.3g} (uv_scales relative; UV terms on "
+                f"the {int(agree.sum())} texels whose masks agree), {frame_note} "
+                f"(tol {SMALL_CREATE_TOL})")
+        return time.perf_counter() - t16, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -2982,24 +3294,33 @@ def main():
                          uv_base_dim=8, style_dim=64, num_mlp=2, channel_scale=8.0, vit_dim=64,
                          vit_depth=5, vit_heads=4, pyramid_dims=(16, 16, 16, 16))
     small = {}
-    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV)):
-        ssc = make_create_scene(64, 64, 21, 7, feat_size=70, device=dev)
-        sinf = init_params_(UbodyGaussianInferer(scfg, ssc.smplx.num_vertices),
-                            torch.Generator().manual_seed(2))
-        sref = init_params_(NeuralRefiner(64, style_dim=64, num_mlp=2, channel_scale=4.0),
-                            torch.Generator().manual_seed(1))
-        spipe = FramePipeline(ssc.ehm, ssc.faces, sref, inferer=sinf, uv_tables=ssc.uv_tables,
-                              image_size=64, invtanfov=INVTANFOV,
-                              settings=RasterizeSettings(tile=16), device=dev)
-        full, sextra = spipe.infer_avatar(ssc.source, prune=False)
-        scam = Camera.from_w2c(torch.as_tensor(ssc.source["w2c"], device=dev), 1.0 / INVTANFOV,
-                               64, 64)
-        face_idx = rasterize_mesh(sextra["ehm_result"].vertices[0], ssc.faces, scam).face_idx
-        pruned, _ = spipe.infer_avatar(ssc.source)
-        frame = spipe.render_frame(pruned, targets[3])
+    # "tf32" repeats the card's run with TF32 forced on: a control the frame hold must see
+    for key, dev in (("cpu", torch.device("cpu")), ("gpu", DEV), ("tf32", DEV)):
+        with tf32_forced() if key == "tf32" else contextlib.nullcontext():
+            ssc = make_create_scene(64, 64, 21, 7, feat_size=70, device=dev)
+            sinf = init_params_(UbodyGaussianInferer(scfg, ssc.smplx.num_vertices),
+                                torch.Generator().manual_seed(2))
+            sref = init_params_(NeuralRefiner(64, style_dim=64, num_mlp=2, channel_scale=4.0),
+                                torch.Generator().manual_seed(1), gain=P7_REFINER_GAIN)
+            spipe = FramePipeline(ssc.ehm, ssc.faces, sref, inferer=sinf,
+                                  uv_tables=ssc.uv_tables, image_size=64, invtanfov=INVTANFOV,
+                                  settings=RasterizeSettings(tile=16), device=dev)
+            full, sextra = spipe.infer_avatar(ssc.source, prune=False)
+            scam = Camera.from_w2c(torch.as_tensor(ssc.source["w2c"], device=dev),
+                                   1.0 / INVTANFOV, 64, 64)
+            face_idx = rasterize_mesh(sextra["ehm_result"].vertices[0], ssc.faces,
+                                      scam).face_idx
+            pruned, _ = spipe.infer_avatar(ssc.source)
+            frame = spipe.render_frame(pruned, targets[3])
+            # reported, not held: the same frame refined at the flax gain
+            spipe.renderer.neural_refiner = init_params_(
+                NeuralRefiner(64, style_dim=64, num_mlp=2, channel_scale=4.0),
+                torch.Generator().manual_seed(1)).to(dev)
+            flax_render = spipe.render_frame(pruned, targets[3])["render"]
         small[key] = {"avatar": {k: v.cpu() for k, v in full._asdict().items()},
                       "face_idx": face_idx.cpu(), "n_uv": pruned.uv_colors.shape[1],
-                      "frame": {k: v.cpu() for k, v in frame.items()}}
+                      "frame": {k: v.cpu() for k, v in frame.items()},
+                      "flax_render": flax_render.cpu()}
     if not torch.equal(small["cpu"]["face_idx"], small["gpu"]["face_idx"]):
         raise SystemExit("64^2 creation: face_idx on the GPU differs from the CPU's")
     if int((small["gpu"]["face_idx"] >= 0).sum()) == 0:
@@ -3019,14 +3340,24 @@ def main():
         raise SystemExit(f"64^2 creation: {worst} GPU vs CPU {field_err[worst]} > {SMALL_CREATE_TOL}")
     if small["cpu"]["n_uv"] != small["gpu"]["n_uv"]:
         raise SystemExit("64^2 creation: pruned UV counts differ")
-    cframe_err = max(float((small["cpu"]["frame"][k] - small["gpu"]["frame"][k]).abs().max())
-                     for k in small["cpu"]["frame"])
-    if not cframe_err <= SMALL_CREATE_TOL:
-        raise SystemExit(f"64^2 create->render: GPU vs CPU max abs {cframe_err} > {SMALL_CREATE_TOL}")
+    cframe_err, tf32_err = (
+        max(float((small["cpu"]["frame"][k] - small[key]["frame"][k]).abs().max())
+            for k in small["cpu"]["frame"]) for key in ("gpu", "tf32"))
+    if not cframe_err <= P7_FRAME_TOL:
+        raise SystemExit(f"64^2 create->render: GPU vs CPU max abs {cframe_err} > {P7_FRAME_TOL}")
+    if not tf32_err > P7_FRAME_TOL:
+        raise SystemExit(f"64^2 create->render with TF32 forced on: GPU vs CPU max abs "
+                         f"{tf32_err}, within {P7_FRAME_TOL}: the frame hold cannot see TF32")
+    flax_err = {key: float((small["cpu"]["flax_render"] - small[key]["flax_render"]).abs().max())
+                for key in ("gpu", "tf32")}
     say(7, f"64^2 create -> render on the GPU vs the CPU (plain kernels): face_idx equal "
            f"({int((small['gpu']['face_idx'] >= 0).sum())} hit pixels), avatar fields worst "
-           f"{worst} {field_err[worst]:.3g} (uv_scales relative), frame max abs {cframe_err:.3g} "
-           f"(tol {SMALL_CREATE_TOL})")
+           f"{worst} {field_err[worst]:.3g} (uv_scales relative; tol {SMALL_CREATE_TOL}), frame "
+           f"max abs {cframe_err:.3g} (tol {P7_FRAME_TOL}) with the refiner at gain "
+           f"{P7_REFINER_GAIN}; the control with TF32 forced on {tf32_err:.3g}, over the tol as "
+           f"it must be; reported: refined at the flax gain (1), the frames lie "
+           f"{flax_err['gpu']:.3g} apart, {flax_err['tf32']:.3g} with TF32 forced on")
+    del small
 
 
     # ---- 8. the training step at full width ----
@@ -3203,17 +3534,22 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # ---- 16. the real-schema runtime ----
+    t16, p16_launches = real_schema(smi)
+    say(16, f"phase 16 in {t16:.1f} s on {smi}; its launches {p16_launches}")
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1018",
-         "launches": launches["K1"] + p14_launches["K1"] + p15_launches["K1"],
+         "launches": (launches["K1"] + p14_launches["K1"] + p15_launches["K1"]
+                      + p16_launches["K1"]),
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None, **occ["K1"], "at_tiles": at_tiles},
         {"name": "K2 face gather", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:125",
-         "launches": launches["K2"] + p15_launches["K2"],
+         "launches": launches["K2"] + p15_launches["K2"] + p16_launches["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms, "floor_ms": k2_floor_ms, **k2_occ},
         {"name": "K3 tile blend backward", "route": "cuda",
@@ -3232,7 +3568,7 @@ def main():
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39",
          "launches": (create_launches + train_launches["K5"] + accum_launches["K5"]
-                      + p14_launches["K5"] + p15_launches["K5"]),
+                      + p14_launches["K5"] + p15_launches["K5"] + p16_launches["K5"]),
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None, "model_cull": cull5,
          **k5_occ},

@@ -231,3 +231,56 @@ def ehm_forward(model: EhmModel, body: BodyParams, flame: FlameParams | None = N
         joint_transforms=res.joint_transforms,
         template=template,
     )
+
+
+def head_hand_subsets(model: EhmModel, result: EhmResult) -> dict[str, torch.Tensor]:
+    """The head and hand vertices with their reference joints."""
+    return {
+        "head_vertices": result.vertices[:, model.smplx2flame_ind],
+        "head_ref_joint": result.joints_rest[:, J_LEYE:J_REYE + 1].mean(1, keepdim=True),
+        "left_hand_vertices": result.vertices[:, model.left_hand_ind],
+        "left_hand_ref_joint": result.joints_rest[:, J_LWRIST:J_LWRIST + 1],
+        "right_hand_vertices": result.vertices[:, model.right_hand_ind],
+        "right_hand_ref_joint": result.joints_rest[:, J_RWRIST:J_RWRIST + 1],
+    }
+
+
+def ehm_transform_mats(
+    model: EhmModel,
+    body: BodyParams,
+    jaw: torch.Tensor | None = None,
+    eyes: torch.Tensor | None = None,
+    mirror_left_hand: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-joint transforms for external motion retargeting: the 55-joint
+    pose from the body, hand and FLAME jaw/eye channels ->
+    (joint_transforms (B, 55, 4, 4), joints_posed (B, 55, 3)).
+    `mirror_left_hand` mirrors left-hand axis-angles, for motion sources
+    whose left hands come mirrored."""
+    B = body.shape.shape[0]
+    dev = body.shape.device
+    lhand = body.left_hand_pose
+    if lhand is not None and mirror_left_hand and lhand.ndim == 3:
+        lhand = lhand * lhand.new_tensor([1.0, -1.0, -1.0])
+    jaw_m = _as_rotmats(jaw.reshape(B, 1, 3)) if jaw is not None else _maybe_pose(None, B, 1, dev)
+    eyes_m = (_as_rotmats(eyes.reshape(B, 2, 3)) if eyes is not None
+              else _maybe_pose(None, B, 2, dev))
+    full_pose = torch.cat([
+        _maybe_pose(body.global_pose, B, 1, dev),
+        _as_rotmats(body.body_pose),
+        jaw_m,
+        eyes_m,
+        _maybe_pose(lhand, B, 15, dev),
+        _maybe_pose(body.right_hand_pose, B, 15, dev),
+    ], dim=1)
+
+    smplx = model.smplx
+    exp = body.exp if body.exp is not None else torch.zeros((B, model.n_exp), device=dev)
+    shape_components = torch.cat([_pad_shape(body.shape, model.n_shape), exp], dim=-1)
+    template = smplx["v_template"][None] + lbs_core.blend_shapes(shape_components,
+                                                                 smplx["shapedirs"])
+    joints = lbs_core.vertices2joints(smplx["J_regressor"], template)
+    if body.joints_offset is not None:
+        joints = joints + body.joints_offset
+    posed, rel = lbs_core.rigid_transform_chain(full_pose, joints, model.smplx_parents)
+    return rel, posed

@@ -19,6 +19,8 @@ from torch import nn
 
 from ..avatar.inferer import InfererConfig, UbodyGaussianInferer
 from ..avatar.renderer import GaussianRenderer, NeuralRefiner
+from ..bodymodel.data import load_flame, load_smplx
+from ..bodymodel.flame import add_teeth_flame
 from ..bodymodel.ehm import BodyParams, EhmModel, FlameParams
 from ..bodymodel.synthetic import synthetic_ehm
 from ..core.cameras import Camera
@@ -100,13 +102,12 @@ def raster_settings(raster_cfg) -> tuple[RasterizeSettings, dict]:
 def build_runtime(cfg: ConfigDict, synthetic_assets: bool = False, device="cuda") -> Runtime:
     dev = resolve_device(device)
     m = cfg.MODEL
-    if synthetic_assets or not os.path.exists(
-        os.path.join(m.smplx_assets_dir, "SMPLX_NEUTRAL_2020.npz")
-    ):
+    model_path = os.path.join(m.smplx_assets_dir, "SMPLX_NEUTRAL_2020.npz")
+    if synthetic_assets or not os.path.exists(model_path):
         if not synthetic_assets:
             print(
-                "[context] SMPL-X model files not found — falling back to "
-                "synthetic assets (geometry is procedural; download the real "
+                "[context] SMPL-X model files not found — falling back to synthetic "
+                f"assets (no {model_path}; geometry is procedural; download the real "
                 "models per the README for production runs)"
             )
         smplx, flame, extras = synthetic_ehm(
@@ -118,10 +119,21 @@ def build_runtime(cfg: ConfigDict, synthetic_assets: bool = False, device="cuda"
             add_teeth=bool(m.get("add_teeth", True)),
         )
     else:
-        raise NotImplementedError(
-            f"real SMPL-X/FLAME assets found under {m.smplx_assets_dir!r}, but their loaders "
-            "(bodymodel/data.py:load_smplx, load_flame) are not ported yet (port slice 9); "
-            "pass synthetic_assets=True to run on the synthetic rig")
+        smplx, extras = load_smplx(
+            m.smplx_assets_dir,
+            n_shape=300,
+            n_exp=50,
+            add_teeth=bool(m.get("add_teeth", True)),
+            uv_size=m.uvmap_size,
+            flame_assets_dir=m.flame_assets_dir,
+        )
+        flame = load_flame(m.flame_assets_dir, n_shape=300, n_exp=50)
+        if bool(m.get("add_teeth", True)):
+            # the EHM writes the FLAME head over smplx2flame_ind, which the
+            # SMPL-X graft extended by the teeth rows: FLAME takes them too,
+            # as the synthetic rig's FLAME does (the JAX package's real
+            # branch skips this and fails in EhmModel.build)
+            flame, _ = add_teeth_flame(flame)
 
     ehm = EhmModel.build(smplx, flame, extras, device=dev)
 

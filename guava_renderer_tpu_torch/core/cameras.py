@@ -31,6 +31,22 @@ class Camera:
         return Camera(R=w2c[:3, :3], t=w2c[:3, 3], tanfovx=tf, tanfovy=tf,
                       width=width, height=height)
 
+    @staticmethod
+    def from_gs_layout(world_view_transform: torch.Tensor, tanfovx, tanfovy,
+                       width: int, height: int) -> "Camera":
+        """Camera from the reference data layer's transposed view matrix."""
+        V = world_view_transform.T
+        dev = world_view_transform.device
+        return Camera(R=V[:3, :3], t=V[:3, 3],
+                      tanfovx=torch.as_tensor(tanfovx, dtype=torch.float32, device=dev),
+                      tanfovy=torch.as_tensor(tanfovy, dtype=torch.float32, device=dev),
+                      width=width, height=height)
+
+    @property
+    def campos(self) -> torch.Tensor:
+        """Camera center in world space: -R^T t."""
+        return -self.R.T @ self.t
+
     @property
     def focal_x(self) -> torch.Tensor:
         return self.width / (2.0 * self.tanfovx)
@@ -59,6 +75,10 @@ class Camera:
     def full_proj_matrix(self) -> torch.Tensor:
         return self.proj_matrix() @ self.view_matrix()
 
+    def gs_layout(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(view^T, (proj@view)^T), the reference data layer's row-vector layout."""
+        return self.view_matrix().T, self.full_proj_matrix().T
+
 
 def world_to_cam(cam: Camera, pts: torch.Tensor) -> torch.Tensor:
     """(..., 3) world -> camera space."""
@@ -80,3 +100,24 @@ def project_points(cam: Camera, pts: torch.Tensor) -> tuple[torch.Tensor, torch.
 
 def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def look_at_camera(eye, target, up=(0.0, 1.0, 0.0), tanfov: float = 0.34,
+                   width: int = 512, height: int = 512, device="cuda") -> Camera:
+    """World-to-camera looking from eye to target (z forward), on `device`."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    eye, target, up = f32(eye), f32(target), f32(up)
+    fwd = target - eye
+    fwd = fwd / torch.linalg.vector_norm(fwd)
+    right = torch.linalg.cross(fwd, up)
+    right = right / torch.linalg.vector_norm(right)
+    down = torch.linalg.cross(fwd, right)
+    R = torch.stack([right, down, fwd])  # rows: the camera axes in world space
+    return Camera(R=R, t=-R @ eye, tanfovx=f32(tanfov), tanfovy=f32(tanfov),
+                  width=width, height=height)

@@ -125,3 +125,21 @@ def lbs(
     T = skinning_transforms(rel, lbs_weights)
     verts = apply_vertex_transforms(v_shaped, T)
     return LbsResult(verts, joints_rest, joints_posed, rel, T)
+
+
+def vertices2landmarks(
+    vertices: torch.Tensor,
+    faces: torch.Tensor,
+    lmk_faces_idx: torch.Tensor,
+    lmk_bary_coords: torch.Tensor,
+) -> torch.Tensor:
+    """Barycentric landmarks: vertices (B, V, 3), faces (F, 3), lmk_faces_idx
+    (B, L) or (L,), lmk_bary_coords (B, L, 3) or (L, 3) -> (B, L, 3)."""
+    B = vertices.shape[0]
+    if lmk_faces_idx.ndim == 1:
+        lmk_faces_idx = lmk_faces_idx[None].expand(B, -1)
+    if lmk_bary_coords.ndim == 2:
+        lmk_bary_coords = lmk_bary_coords[None].expand(B, -1, -1)
+    tri = faces.long()[lmk_faces_idx.long()]                       # (B, L, 3)
+    tri_verts = vertices[torch.arange(B, device=vertices.device)[:, None, None], tri]
+    return torch.einsum("blvc,blv->blc", tri_verts, lmk_bary_coords)

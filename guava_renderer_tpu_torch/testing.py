@@ -267,3 +267,288 @@ def pixels_to_world(tri: np.ndarray, tri_z: np.ndarray, size: int) -> tuple:
     xy = z * ((2.0 * tri.astype(np.float64) + 1.0) / size - 1.0)
     verts = np.concatenate([xy, z], axis=-1).reshape(-1, 3).astype(np.float32)
     return verts, np.arange(verts.shape[0], dtype=np.int32).reshape(-1, 3)
+
+
+# ---------------------------------------------------------------------------
+# SMPL-X / FLAME files in the published schema
+# ---------------------------------------------------------------------------
+
+# the published counts: SMPL-X 2020 neutral and FLAME 2020
+SCHEMA_COUNTS = {"smplx_vertices": 10475, "smplx_faces": 20908, "flame_vertices": 5023,
+                 "flame_faces": 9976, "hand_vertices": 778, "components": 400}
+SCHEMA_HEAD_OFFSET = (0.0, 1.0, 0.0)    # the FLAME head's place in the SMPL-X template
+
+
+def _sheet_layout(V: int, F: int) -> tuple[int, int, np.ndarray]:
+    """A grid of nx x ny vertices, V - nx*ny apex vertices (each behind its
+    own cell, on 1-4 faces to the cell's corners) and cross-diagonal faces,
+    together exactly V vertices and F faces. Returns (nx, ny, faces per apex)."""
+    best = None
+    for nx in range(2, int(np.sqrt(V)) + 2):
+        for ny in range(nx, V // nx + 1):
+            cells = (nx - 1) * (ny - 1)
+            e, t = V - nx * ny, F - 2 * cells
+            if e < 0 or t < e or e > cells or t - 4 * e > 2 * cells:
+                continue
+            key = (e, ny - nx)
+            if best is None or key < best[0]:
+                best = (key, nx, ny, e, t)
+    if best is None:
+        raise ValueError(f"no sheet layout of {V} vertices and {F} faces")
+    _, nx, ny, e, t = best
+    per = np.full(e, min(4, t // max(e, 1)), np.int64)
+    per[: max(0, min(t, 4 * e) - int(per.sum()))] += 1
+    return nx, ny, per
+
+
+def _sheet(V: int, F: int, extent, uv_origin, uv_size, seam_gap: float):
+    """A seeded-free procedural sheet of exactly V vertices and F faces in the
+    xy plane (the apexes sit behind it, at larger z) and its UV chart in image
+    space, split by a seam down the middle column: more texcoords than vertices.
+
+    Returns (verts, faces, texcoords, faces_vt, nx, ny)."""
+    nx, ny, per = _sheet_layout(V, F)
+    cells = (nx - 1) * (ny - 1)
+    jj, ii = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    gx = (jj / (nx - 1) - 0.5) * extent[0]
+    gy = (ii / (ny - 1) - 0.5) * extent[1]
+    gz = 0.05 * extent[0] * (2 * jj / (nx - 1) - 1) ** 2
+    grid = np.stack([gx, gy, gz], -1).reshape(-1, 3)
+    ci, cj = np.divmod(np.arange(cells), nx - 1)
+    a = ci * nx + cj
+    quad = np.stack([a, a + 1, a + nx, a + nx + 1], 1)          # (cells, 4): b00 b01 b10 b11
+    faces = [np.stack([quad[:, 0], quad[:, 1], quad[:, 2]], 1),
+             np.stack([quad[:, 1], quad[:, 3], quad[:, 2]], 1)]
+    e = len(per)
+    apex_cell = (np.arange(e) * (cells // max(e, 1))) if e else np.zeros(0, np.int64)
+    depth = 0.3 * extent[0] / (nx - 1)
+    apex = grid[quad[apex_cell]].mean(1) + np.array([0.0, 0.0, depth])
+    ring = ((0, 1), (1, 3), (3, 2), (2, 0))
+    for k in range(4):
+        sel = np.nonzero(per > k)[0]
+        q = quad[apex_cell[sel]]
+        faces.append(np.stack([nx * ny + sel, q[:, ring[k][0]], q[:, ring[k][1]]], 1))
+    n_cross = F - 2 * cells - int(per.sum())
+    cq = quad[np.arange(n_cross // 2 + n_cross % 2)]
+    cross = np.concatenate([np.stack([cq[:, 0], cq[:, 1], cq[:, 3]], 1),
+                            np.stack([cq[:, 0], cq[:, 3], cq[:, 2]], 1)])[:n_cross]
+    faces.append(cross)
+    faces = np.concatenate(faces).astype(np.int64)
+    verts = np.concatenate([grid, apex]).astype(np.float32)
+
+    # UV: the grid maps onto its island; the seam column gets a second
+    # texcoord, used by the cells right of it, which sit seam_gap further right
+    mid = (nx - 1) // 2
+    tu = uv_origin[0] + jj / (nx - 1) * uv_size[0] + np.where(jj > mid, seam_gap, 0.0)
+    tv = uv_origin[1] + ii / (ny - 1) * uv_size[1]
+    tex_grid = np.stack([tu, tv], -1).reshape(-1, 2)
+    seam_rows = np.arange(ny) * nx + mid
+    tex_seam = tex_grid[seam_rows] + np.array([seam_gap, 0.0])
+    tex_apex = tex_grid[quad[apex_cell]].mean(1) + np.where(
+        (cj[apex_cell] >= mid)[:, None], [seam_gap, 0.0], 0.0)
+    texcoords = np.concatenate([tex_grid, tex_apex, tex_seam]).astype(np.float32)
+    seam_id = np.full(nx * ny + e, -1, np.int64)
+    seam_id[seam_rows] = nx * ny + e + np.arange(ny)
+    # a face is right of the seam when its grid corners' mean column is
+    face_col = np.where(faces < nx * ny, faces % nx, -1)
+    right = np.where(face_col >= 0, face_col, 0).sum(1) / np.maximum((face_col >= 0).sum(1), 1) > mid
+    faces_vt = faces.copy()
+    on_seam = (seam_id[faces] >= 0) & right[:, None]
+    faces_vt[on_seam] = seam_id[faces][on_seam]
+    return verts, faces, texcoords, faces_vt.astype(np.int64), nx, ny
+
+
+def _regressor_rows(verts: np.ndarray, joints: np.ndarray, k: int = 8) -> np.ndarray:
+    J = np.zeros((joints.shape[0], verts.shape[0]), np.float32)
+    for j in range(joints.shape[0]):
+        J[j, np.argsort(((verts - joints[j]) ** 2).sum(-1))[:k]] = 1.0 / k
+    return J
+
+
+def _soft_weights(verts: np.ndarray, joints: np.ndarray, sharp: float) -> np.ndarray:
+    w = np.exp(-sharp * ((verts[:, None] - joints[None]) ** 2).sum(-1))
+    return (w / w.sum(1, keepdims=True)).astype(np.float32)
+
+
+def write_flame_pickle(path: str, model: dict, chumpy: bool = False) -> None:
+    """Write a FLAME model dict as generic_model.pkl (protocol 2). With
+    chumpy=True its dense arrays are pickled as chumpy `Ch` objects, through
+    a stand-in `chumpy` module that is in sys.modules only while writing."""
+    import pickle
+    import sys
+    import types
+
+    model = dict(model)
+    saved = {k: sys.modules.get(k) for k in ("chumpy", "chumpy.ch")}
+    try:
+        if chumpy:
+            ch = types.ModuleType("chumpy.ch")
+            Ch = type("Ch", (), {"__module__": "chumpy.ch"})
+            ch.Ch = Ch
+            pkg = types.ModuleType("chumpy")
+            pkg.ch = ch
+            sys.modules["chumpy"], sys.modules["chumpy.ch"] = pkg, ch
+            for k in ("v_template", "shapedirs", "posedirs", "weights", "J"):
+                obj = Ch.__new__(Ch)
+                obj.__dict__.update({"x": np.asarray(model[k], np.float64),
+                                     "_dirty_vars": set()})
+                model[k] = obj
+        with open(path, "wb") as f:
+            pickle.dump(model, f, protocol=2)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def write_schema_assets(root: str, seed: int = 0, counts: dict | None = None) -> dict:
+    """Write SMPL-X and FLAME asset directories in the published schema,
+    with procedural, seeded geometry:
+
+    <root>/SMPLX: SMPLX_NEUTRAL_2020.npz (v_template, f, shapedirs (V, 3, 400),
+    posedirs (V, 3, 486), a dense J_regressor, weights, kintree_table, the
+    static and dynamic landmark tables), SMPL-X__FLAME_vertex_ids.npy,
+    MANO_SMPLX_vertex_ids.pkl, flame_{l,r}_eyelid.npy, smplx_uv.obj (a chart
+    with seams: more texcoords than vertices);
+    <root>/FLAME: generic_model.pkl (shapedirs (V, 3, 400), posedirs (V, 3, 36),
+    a scipy-sparse J_regressor), {l,r}_eyelid.npy, landmark_embedding.npy.
+
+    The SMPL-X head region is the FLAME mesh through the id map (at
+    SCHEMA_HEAD_OFFSET), with the eye/jaw/neck regressor rows read from it,
+    so the EHM graft is near identity; the FLAME lip rings of
+    `flame_regions.py` are two adjacent rows of the head sheet. The mesh sits
+    in front of a camera at w2c z = 30 with tan(fov/2) = 1/24 (ubody_512).
+    `counts` overrides SCHEMA_COUNTS (smaller meshes for narrow tests).
+
+    Returns {"smplx_dir", "flame_dir", "flame_model"} (the pickled FLAME dict)."""
+    import os
+    import pickle
+
+    import scipy.sparse
+
+    from .bodymodel.flame_regions import LIP_OUTSIDE_RING_LOWER, LIP_OUTSIDE_RING_UPPER
+    from .bodymodel.synthetic import SMPLX_PARENTS
+
+    c = dict(SCHEMA_COUNTS, **(counts or {}))
+    rng = np.random.default_rng(seed)
+    K = c["components"]
+    smplx_dir, flame_dir = os.path.join(root, "SMPLX"), os.path.join(root, "FLAME")
+    os.makedirs(smplx_dir, exist_ok=True)
+    os.makedirs(flame_dir, exist_ok=True)
+
+    # ---- FLAME: a head sheet whose lip rings sit on two adjacent rows ----
+    Vf, Ff = c["flame_vertices"], c["flame_faces"]
+    hv, hf, htex, hfvt, hnx, hny = _sheet(Vf, Ff, (0.3, 0.3), (0.62, 0.02), (0.36, 0.36),
+                                          seam_gap=0.02)
+    n_ring = len(LIP_OUTSIDE_RING_UPPER)
+    if hnx < n_ring + 2 or hny < 4 or Vf <= max(LIP_OUTSIDE_RING_UPPER.max(),
+                                                 LIP_OUTSIDE_RING_LOWER.max()):
+        raise ValueError(f"a FLAME sheet of {Vf} vertices cannot hold the lip rings")
+    row, col0 = hny // 3, (hnx - n_ring) // 2
+    upper_at = (row + 1) * hnx + col0 + np.arange(n_ring)       # sheet order
+    lower_at = row * hnx + col0 + np.arange(n_ring)
+    fixed = {int(s): int(i) for s, i in zip(np.r_[upper_at, lower_at],
+                                            np.r_[LIP_OUTSIDE_RING_UPPER, LIP_OUTSIDE_RING_LOWER])}
+    free_ids = iter(sorted(set(range(Vf)) - set(fixed.values())))
+    new_id = np.array([fixed[s] if s in fixed else next(free_ids) for s in range(Vf)])
+    flame_v = np.zeros_like(hv)
+    flame_v[new_id] = hv
+    flame_f = new_id[hf]
+    flame_joints = np.array([[0.0, -0.1, 0.0], [0.0, -0.05, 0.0], [0.0, 0.0, 0.02],
+                             [-0.05, 0.05, 0.0], [0.05, 0.05, 0.0]], np.float32)
+    flame_jreg = _regressor_rows(flame_v, flame_joints)
+    flame_sd = (rng.normal(size=(Vf, 3, K)) * 0.003).astype(np.float32)
+    flame_pd = (rng.normal(size=(Vf, 3, 36)) * 0.0005).astype(np.float32)
+    l_eyelid = (rng.normal(size=(Vf, 3)) * 0.01).astype(np.float32)
+    r_eyelid = (rng.normal(size=(Vf, 3)) * 0.01).astype(np.float32)
+    flame_model = {
+        "f": flame_f.astype(np.uint32),
+        "v_template": flame_v.astype(np.float64),
+        "shapedirs": flame_sd.astype(np.float64),
+        "posedirs": flame_pd.astype(np.float64),
+        "J_regressor": scipy.sparse.csc_matrix(flame_jreg.astype(np.float64)),
+        "weights": _soft_weights(flame_v, flame_joints, 40.0).astype(np.float64),
+        "kintree_table": np.array([[4294967295, 0, 1, 1, 1], [0, 1, 2, 3, 4]], np.int64),
+        "J": flame_joints.astype(np.float64),
+        "bs_style": "lbs",
+        "bs_type": "lrotmin",
+    }
+    write_flame_pickle(os.path.join(flame_dir, "generic_model.pkl"), flame_model)
+    np.save(os.path.join(flame_dir, "l_eyelid.npy"), l_eyelid)
+    np.save(os.path.join(flame_dir, "r_eyelid.npy"), r_eyelid)
+
+    def bary(*shape):
+        b = rng.uniform(0.05, 1.0, shape + (3,))
+        return (b / b.sum(-1, keepdims=True)).astype(np.float32)
+
+    np.save(os.path.join(flame_dir, "landmark_embedding.npy"), {
+        "static_lmk_faces_idx": rng.integers(0, Ff, 51).astype(np.int64),
+        "static_lmk_bary_coords": bary(51),
+        "dynamic_lmk_faces_idx": rng.integers(0, Ff, (79, 17)).astype(np.int64),
+        "dynamic_lmk_bary_coords": bary(79, 17),
+        "full_lmk_faces_idx": rng.integers(0, Ff, (1, 68)).astype(np.int64),
+        "full_lmk_bary_coords": bary(1, 68),
+    }, allow_pickle=True)
+
+    # ---- SMPL-X: a body sheet plus the FLAME head, interleaved by a seeded id map ----
+    V, F = c["smplx_vertices"], c["smplx_faces"]
+    Vb, Fb = V - Vf, F - Ff
+    bv, bf, btex, bfvt, _, _ = _sheet(Vb, Fb, (0.8, 1.6), (0.02, 0.0), (0.5, 0.92),
+                                      seam_gap=0.03)
+    head_ids = np.sort(rng.choice(V, Vf, replace=False))
+    body_ids = np.setdiff1d(np.arange(V), head_ids)
+    v_template = np.zeros((V, 3), np.float32)
+    v_template[body_ids] = bv
+    v_template[head_ids] = flame_v + np.asarray(SCHEMA_HEAD_OFFSET, np.float32)
+    faces = np.concatenate([body_ids[bf], head_ids[flame_f]])
+    texcoords = np.concatenate([btex, htex])
+    faces_vt = np.concatenate([bfvt, hfvt + len(btex)])
+    order = rng.permutation(F)
+    faces, faces_vt = faces[order], faces_vt[order]
+
+    joints = np.zeros((55, 3), np.float32)
+    t = np.linspace(-0.8, 0.8, 55)
+    joints[:, 0], joints[:, 1] = np.sin(t * 3.0) * 0.3, t
+    for jj, fj in ((12, 1), (22, 2), (23, 3), (24, 4)):      # neck, jaw, eyes
+        joints[jj] = flame_joints[fj] + np.asarray(SCHEMA_HEAD_OFFSET, np.float32)
+    jreg = _regressor_rows(v_template, joints)
+    for jj, fj in ((12, 1), (22, 2), (23, 3), (24, 4)):
+        jreg[jj] = 0.0
+        jreg[jj, head_ids] = flame_jreg[fj]
+    shapedirs = (rng.normal(size=(V, 3, K)) * 0.003).astype(np.float32)
+    shapedirs[head_ids] = flame_sd
+    head_faces = np.nonzero(np.isin(order, np.arange(Fb, F)))[0]
+    kintree = np.stack([SMPLX_PARENTS.astype(np.int64), np.arange(55)])
+    kintree[0, 0] = 4294967295
+    np.savez(
+        os.path.join(smplx_dir, "SMPLX_NEUTRAL_2020.npz"),
+        v_template=v_template,
+        f=faces.astype(np.int32),
+        shapedirs=shapedirs,
+        posedirs=(rng.normal(size=(V, 3, 54 * 9)) * 0.0002).astype(np.float32),
+        J_regressor=jreg,
+        weights=_soft_weights(v_template, joints, 20.0),
+        kintree_table=kintree,
+        lmk_faces_idx=rng.choice(head_faces, 51).astype(np.int64),
+        lmk_bary_coords=bary(51),
+        dynamic_lmk_faces_idx=rng.choice(head_faces, (79, 17)).astype(np.int64),
+        dynamic_lmk_bary_coords=bary(79, 17),
+    )
+    np.save(os.path.join(smplx_dir, "SMPL-X__FLAME_vertex_ids.npy"), head_ids.astype(np.int64))
+    hands = {}
+    for side, corner in (("left_hand", (-0.4, -0.8, 0.0)), ("right_hand", (0.4, -0.8, 0.0))):
+        d = ((v_template[body_ids] - np.asarray(corner)) ** 2).sum(-1)
+        hands[side] = np.sort(body_ids[np.argsort(d, kind="stable")[: c["hand_vertices"]]])
+    with open(os.path.join(smplx_dir, "MANO_SMPLX_vertex_ids.pkl"), "wb") as f:
+        pickle.dump(hands, f, protocol=2)
+    np.save(os.path.join(smplx_dir, "flame_l_eyelid.npy"), l_eyelid)
+    np.save(os.path.join(smplx_dir, "flame_r_eyelid.npy"), r_eyelid)
+    with open(os.path.join(smplx_dir, "smplx_uv.obj"), "w") as f:
+        f.write("".join(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v_template))
+        # OBJ v runs bottom-up: the loader flips it back to image space
+        f.write("".join(f"vt {u:.6f} {1.0 - v:.6f}\n" for u, v in texcoords))
+        f.write("".join(f"f {a + 1}/{ta + 1} {b + 1}/{tb + 1} {cc + 1}/{tc + 1}\n"
+                        for (a, b, cc), (ta, tb, tc) in zip(faces, faces_vt)))
+    return {"smplx_dir": smplx_dir, "flame_dir": flame_dir, "flame_model": flame_model}

@@ -14,7 +14,6 @@ resident path's gradient is held bit for bit against the port's default
 path, whose gradient tests/test_torch_gsplat_grad.py holds against JAX.
 """
 
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -340,7 +339,6 @@ FRAME_LADDER = ((64, 16), (192, 16), (256, 16))   # 64^2 / tile 16: caps = the w
 @pytest.fixture(scope="module")
 def frame_scenes():
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jsc = jbench.make_bench_scene(**SCENE)

@@ -1,7 +1,6 @@
 """Port vs JAX: the synthetic rig (bit for bit) and the EHM forward (atol 1e-5)."""
 
 import dataclasses
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,13 +21,8 @@ RIG = dict(body_side=24, head_side=10, uv_size=64)
 
 @pytest.fixture(scope="module")
 def rigs():
-    """(jax rig, port rig); JAX forced onto its numpy UV rasterizer, uncached."""
-    mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)
-    try:
-        jrig = jsyn.synthetic_ehm(**RIG, cache=False)
-    finally:
-        mp.undo()
+    """(jax rig, port rig), the JAX rig uncached."""
+    jrig = jsyn.synthetic_ehm(**RIG, cache=False)
     return jrig, tsyn.synthetic_ehm(**RIG)
 
 

@@ -12,7 +12,6 @@ at 4 tiles of a 2 x 2 grid, so the JAX frame truncates nothing, which the
 test asserts by its own count before comparing.
 """
 
-import sys
 from pathlib import Path
 
 import jax
@@ -38,6 +37,7 @@ from guava_renderer_tpu_torch.cli.inference import FramePipeline
 from guava_renderer_tpu_torch.convert import model_from_flax
 from guava_renderer_tpu_torch.train.checkpoints import CheckpointManager
 from guava_renderer_tpu_torch.train.trainstep import make_train_state
+from guava_renderer_tpu_torch.testing import write_schema_assets
 from guava_renderer_tpu_torch.train.weights import save_converted_params
 from guava_renderer_tpu_torch.utils.config import load_config
 
@@ -50,7 +50,6 @@ ATOL = 1e-4
 
 def _jax_runtime(path, overrides=None):
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         return jctx.build_runtime(jload_config(path, overrides), synthetic_assets=True)
@@ -136,16 +135,130 @@ def test_synthetic_fallback_notice(capsys, tmp_path):
     """Absent asset files: JAX's notice, then the synthetic rig."""
     cfg = load_config(MICRO, {"MODEL": {"smplx_assets_dir": str(tmp_path / "none")}})
     tctx.build_runtime(cfg, synthetic_assets=False, device="cpu")
-    assert "SMPL-X model files not found — falling back to synthetic assets" in \
-        capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "SMPL-X model files not found — falling back to synthetic assets" in out
+    assert str(tmp_path / "none" / "SMPLX_NEUTRAL_2020.npz") in out
     tctx.build_runtime(cfg, synthetic_assets=True, device="cpu")
     assert "falling back" not in capsys.readouterr().out
 
 
-def test_real_assets_raise_naming_slice_9(tmp_path):
-    (tmp_path / "SMPLX_NEUTRAL_2020.npz").write_bytes(b"")
-    cfg = load_config(MICRO, {"MODEL": {"smplx_assets_dir": str(tmp_path)}})
-    with pytest.raises(NotImplementedError, match="slice 9"):
+# ---- the real-asset branch, on reduced-count schema files ----
+
+REAL_COUNTS = {"smplx_vertices": 6223, "smplx_faces": 12376}
+
+
+@pytest.fixture(scope="module")
+def real_assets(tmp_path_factory):
+    paths = write_schema_assets(str(tmp_path_factory.mktemp("schema")), seed=1,
+                                counts=REAL_COUNTS)
+    return {"MODEL": {"smplx_assets_dir": paths["smplx_dir"],
+                      "flame_assets_dir": paths["flame_dir"]}}
+
+
+def _assert_same_ehm(tehm, jehm):
+    """Every EHM table equal, but the grafted SMPL-X template: the FLAME head
+    moved to the eye anchor, which each package regresses in its own float32
+    einsum (atol 1e-6, as test_build_runtime_equals_jax holds it)."""
+    for part in ("smplx", "flame"):
+        jpart, tpart = getattr(jehm, part), getattr(tehm, part)
+        assert sorted(tpart) == sorted(jpart)
+        for k, v in jpart.items():
+            if (part, k) == ("smplx", "v_template"):
+                np.testing.assert_allclose(tpart[k].numpy(), np.asarray(v), atol=1e-6, rtol=0)
+            else:
+                np.testing.assert_array_equal(tpart[k].numpy(), np.asarray(v),
+                                              err_msg=f"{part}.{k}")
+
+
+def _with(over, **model):
+    return {"MODEL": dict(over["MODEL"], **model)}
+
+
+@pytest.fixture(scope="module")
+def real_frames(real_assets):
+    """Both packages' build_runtime on the files at micro widths (without the
+    teeth, which the JAX real branch cannot graft: see the next test); the
+    port creates the avatar and both render it, as micro_frames does."""
+    over = _with(real_assets, add_teeth=False)
+    jrt = jctx.build_runtime(jload_config(MICRO, over))
+    trt = tctx.build_runtime(load_config(MICRO, over), device="cpu")
+    with jax.default_prng_impl("unsafe_rbg"):
+        params = jax.jit(lambda: jctx.init_params(jrt, seed=0))()
+    model_from_flax(jax.tree_util.tree_map(np.asarray, params["model"]),
+                    trt.inferer, trt.renderer)
+    source, target = _source_and_target(trt.smplx.n_shape, trt.smplx.n_exp)
+    tpipe = FramePipeline.from_runtime(trt)
+    tavatar, _ = tpipe.infer_avatar(source)
+    tout = tpipe.render_frame(tavatar, target)
+    javatar = JAvatar(**{k: jnp.asarray(getattr(tavatar, k).numpy())
+                         for k in JAvatar._fields})
+    jout = {k: np.asarray(v)
+            for k, v in JFramePipeline(jrt, params["model"]).render_frame(javatar, target).items()}
+    truncated = int(jax.jit(lambda a: _num_truncated(jrt, a, target))(javatar))
+    return dict(jrt=jrt, trt=trt, tout=tout, jout=jout, truncated=truncated)
+
+
+def test_real_assets_runtime_equals_jax(real_frames):
+    """The loaders, the EHM and the statics of both real branches; then the
+    created-and-rendered frame within ATOL of the JAX frame."""
+    jrt, trt = real_frames["jrt"], real_frames["trt"]
+    assert (trt.smplx.n_shape, trt.smplx.n_exp) == (jrt.smplx.n_shape, jrt.smplx.n_exp) == \
+        (300, 50)
+    assert trt.num_vertices == jrt.num_vertices == REAL_COUNTS["smplx_vertices"]
+    for name in ("faces", "uvmap_f_idx", "uvmap_f_bary", "uvmap_mask"):
+        np.testing.assert_array_equal(getattr(trt.statics, name).numpy(),
+                                      np.asarray(getattr(jrt.statics, name)), err_msg=name)
+    _assert_same_ehm(trt.ehm, jrt.ehm)
+    for k in ("smplx2flame_ind", "left_hand_ind", "right_hand_ind", "left_hand_center",
+              "right_hand_center"):
+        np.testing.assert_array_equal(getattr(trt.ehm, k).numpy(), np.asarray(getattr(jrt.ehm, k)),
+                                      err_msg=k)
+    assert (trt.ehm.smplx_parents, trt.ehm.flame_parents) == \
+        (jrt.ehm.smplx_parents, jrt.ehm.flame_parents)
+    assert real_frames["truncated"] == 0
+    for key in ("render", "raw", "invdepth"):
+        got, want = real_frames["tout"][key].numpy(), real_frames["jout"][key]
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0, err_msg=key)
+    assert float(real_frames["jout"]["raw"].max()) > 0.0, "the frame is background"
+
+
+def test_real_assets_runtime_grafts_flame_teeth(real_assets):
+    """With add_teeth (ubody_512's setting) the port grafts the FLAME teeth
+    rows that the SMPL-X graft's id map points at; the JAX real branch does
+    not and fails in EhmModel.build. The port's EHM equals the JAX EHM built
+    from the JAX loaders with that graft."""
+    from guava_renderer_tpu.bodymodel import data as jdata
+    from guava_renderer_tpu.bodymodel.ehm import EhmModel as JEhmModel
+    from guava_renderer_tpu.bodymodel.flame import add_teeth_flame as jadd_teeth_flame
+
+    over = _with(real_assets, add_teeth=True)
+    with pytest.raises(ValueError, match="Incompatible shapes"):
+        jctx.build_runtime(jload_config(MICRO, over))
+    trt = tctx.build_runtime(load_config(MICRO, over), device="cpu")
+    m = over["MODEL"]
+    jsmplx, jextras = jdata.load_smplx(m["smplx_assets_dir"], add_teeth=True, uv_size=16,
+                                       flame_assets_dir=m["flame_assets_dir"])
+    jflame, _ = jadd_teeth_flame(jdata.load_flame(m["flame_assets_dir"]))
+    jehm = JEhmModel.build(jsmplx, jflame, jextras)
+    assert trt.flame.num_vertices == 5023 + 120      # FLAME 2020 plus the 8 x 15 teeth rows
+    _assert_same_ehm(trt.ehm, jehm)
+    tctx.init_params(trt, seed=0)
+    source, target = _source_and_target(trt.smplx.n_shape, trt.smplx.n_exp)
+    pipe = FramePipeline.from_runtime(trt)
+    avatar, _ = pipe.infer_avatar(source)
+    out = pipe.render_frame(avatar, target)
+    assert out["render"].shape == (32, 32, 3) and bool(torch.isfinite(out["render"]).all())
+
+
+def test_real_assets_missing_file_is_named(real_assets, tmp_path):
+    import shutil
+
+    smplx_dir = tmp_path / "SMPLX"
+    shutil.copytree(real_assets["MODEL"]["smplx_assets_dir"], smplx_dir)
+    (smplx_dir / "MANO_SMPLX_vertex_ids.pkl").unlink()
+    cfg = load_config(MICRO, _with(real_assets, smplx_assets_dir=str(smplx_dir)))
+    with pytest.raises(FileNotFoundError, match="MANO_SMPLX_vertex_ids.pkl"):
         tctx.build_runtime(cfg, device="cpu")
 
 

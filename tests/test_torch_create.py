@@ -9,7 +9,6 @@ on the avatar's bounded fields and on render, raw and invdepth; the UV
 scales relatively, rtol 1e-3.
 """
 
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +65,6 @@ def created():
     source["w2c"][2, 3] = 6.0
     smplx = tsc.smplx
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jrig = jsynthetic_ehm(uv_size=UV, n_shape=50, n_exp=20, **RIG)

@@ -64,7 +64,6 @@ def model(tmp_path_factory):
     load_config(MICRO, over)._dump(str(mdir / "config.yaml"))
 
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jrt = jctx.build_runtime(jload_config(MICRO, over), synthetic_assets=True)

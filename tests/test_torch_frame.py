@@ -7,7 +7,6 @@ interpret mode) -> NeuralRefiner. atol 1e-4 on render, raw and invdepth:
 the deformation's float error passes through projection into the blend.
 """
 
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +40,6 @@ ATOL = 1e-4
 @pytest.fixture(scope="module")
 def scenes():
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jsc = jbench.make_bench_scene(**SCENE)

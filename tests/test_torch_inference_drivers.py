@@ -14,7 +14,6 @@ test hands them one, so its two programs compile once for the file.
 
 import json
 import os
-import sys
 from pathlib import Path
 
 import cv2
@@ -69,7 +68,6 @@ def runs(tmp_path_factory):
     over = {"DATASET": {"data_path": data}}
 
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jrt = jctx.build_runtime(jload_config(MICRO, over), synthetic_assets=True)

@@ -7,7 +7,6 @@ float32 layers deep; measured ~1e-6); the UV scales are exp of an exponent
 and are held relatively, rtol 1e-3.
 """
 
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +52,6 @@ def _source(rng, B, n_shape, n_exp):
 @pytest.fixture(scope="module")
 def world():
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jrig = jsynthetic_ehm(**RIG)

@@ -11,7 +11,6 @@ flax draw is a normal truncated at 2 sigma and rescaled to the same
 variance) and a mean within 6 / sqrt(n) of it.
 """
 
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,6 @@ MIN_RANDOM = 256
 @pytest.fixture(scope="module")
 def leaves():
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         smplx, _, extras = jsynthetic_ehm(**RIG)
@@ -109,7 +107,6 @@ def main(draws=6):
     from guava_renderer_tpu_torch.convert import inferer_from_flax
 
     torch.set_num_threads(4)
-    sys.modules["cv2"] = None
     sc = make_create_scene(512, 512, 21, 7, feat_size=518, device="cpu")
     V = sc.smplx.num_vertices
     f_idx, f_bary, mask = sc.uv_tables

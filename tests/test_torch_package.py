@@ -13,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "guava_renderer_tpu")
 # absent on the card: the port reads configs with its own reader, converted
 # weights with torch.load, and images with its own codec (data/codec.py)
-ABSENT_ON_CARD = ("yaml", "msgpack", "cv2", "PIL", "imageio", "lmdb")
+ABSENT_ON_CARD = ("yaml", "msgpack", "cv2", "PIL", "imageio", "lmdb", "chumpy")
 PORT_FILES = sorted((ROOT / "guava_renderer_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
@@ -65,6 +65,31 @@ def test_driver_modules_are_in_the_walk(rel):
     assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
 
 
+BODYMODEL_MODULES = ("core/rotations.py", "core/cameras.py", "core/lbs.py", "core/mesh.py",
+                     "bodymodel/__init__.py", "bodymodel/data.py", "bodymodel/flame_regions.py",
+                     "bodymodel/smplx.py", "bodymodel/flame.py", "bodymodel/flame_mask.py",
+                     "bodymodel/landmarks.py", "bodymodel/ehm.py", "cli/context.py",
+                     "testing.py")
+
+
+@pytest.mark.parametrize("rel", BODYMODEL_MODULES)
+def test_body_model_modules_are_in_the_walk(rel):
+    assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
+
+
+def _build_runtime_on_real_files(micro):
+    """build_runtime on micro_synthetic.yaml pointed at reduced-count schema files."""
+    from guava_renderer_tpu_torch.cli.context import build_runtime
+    from guava_renderer_tpu_torch.testing import write_schema_assets
+    from guava_renderer_tpu_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_schema_assets(d, seed=0,
+                                    counts={"smplx_vertices": 6223, "smplx_faces": 12376})
+        return build_runtime(load_config(micro, {"MODEL": {
+            "smplx_assets_dir": paths["smplx_dir"], "flame_assets_dir": paths["flame_dir"]}}))
+
+
 def _entry_points():
     from guava_renderer_tpu_torch import testing
     from guava_renderer_tpu_torch.benchscene import (
@@ -76,6 +101,8 @@ def _entry_points():
     from guava_renderer_tpu_torch.tools import (
         dma_bench, ee_probe, mosaic_probe, sort_payload_bench)
     from guava_renderer_tpu_torch.cli.context import build_runtime
+    from guava_renderer_tpu_torch.core.cameras import look_at_camera
+    from guava_renderer_tpu_torch.bodymodel.landmarks import landmark_tables_from_smplx_npz
     from guava_renderer_tpu_torch.utils.config import load_config
     from guava_renderer_tpu_torch.cli import train as cli_train
     from guava_renderer_tpu_torch.cli.trainer_loop import run_training
@@ -106,6 +133,9 @@ def _entry_points():
         "tools.sort_payload_bench": lambda: sort_payload_bench.main([]),
         "tools.mosaic_probe": lambda: mosaic_probe.main([]),
         "build_runtime": lambda: build_runtime(load_config(micro), synthetic_assets=True),
+        "build_runtime on real files": lambda: _build_runtime_on_real_files(micro),
+        "look_at_camera": lambda: look_at_camera((0.0, 0.0, -3.0), (0.0, 0.0, 0.0)),
+        "landmark_tables_from_smplx_npz": lambda: landmark_tables_from_smplx_npz({}),
         "bench_torch": lambda: bench_torch.main([]),
         "cli.train": lambda: cli_train.main(["-c", micro, "--synthetic_assets"]),
         "tools.make_teacher_dataset": lambda: make_teacher_dataset.main(
@@ -131,7 +161,9 @@ def _entry_points():
                                   "make_micro_pipeline", "make_tiny_pipeline",
                                   "lpips_from_flax", "tools.ee_probe", "tools.dma_bench",
                                   "tools.sort_payload_bench", "tools.mosaic_probe",
-                                  "build_runtime", "bench_torch", "cli.train",
+                                  "build_runtime", "build_runtime on real files",
+                                  "look_at_camera", "landmark_tables_from_smplx_npz",
+                                  "bench_torch", "cli.train",
                                   "tools.make_teacher_dataset", "run_training", "cli.test",
                                   "cli.create_avatar", "cli.render_motion", "cli.metrics",
                                   "cli.app", "render_set"])

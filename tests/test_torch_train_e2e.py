@@ -13,7 +13,6 @@ with beta1 = 0 the first Adam update is lr * sign(g), which hides a wrong
 magnitude.
 """
 
-import sys
 
 import jax
 import numpy as np
@@ -55,7 +54,6 @@ def _flat(tree, prefix=""):
 @pytest.fixture(scope="module")
 def both():
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jtp = jtesting.make_micro_pipeline(batch_size=B)

@@ -16,7 +16,6 @@ entry point and the teacher tool.
 """
 
 import os
-import sys
 from pathlib import Path
 
 import jax
@@ -74,7 +73,6 @@ def runs(tmp_path_factory):
             "OPTIMIZE": {"learning_rate": 0.0}}
 
     mp = pytest.MonkeyPatch()
-    mp.setitem(sys.modules, "cv2", None)      # JAX onto its numpy UV rasterizer
     mp.setenv("GUAVA_NO_RIG_CACHE", "1")
     try:
         jrt = jctx.build_runtime(jload_config(MICRO, over), synthetic_assets=True)
