@@ -30,7 +30,9 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      avatar 5 times, with launch counts, ms/creation, a per-stage split
      and one frame rendered from the created avatar;
   7. create then render at 64^2 and narrow widths, on the GPU against the
-     CPU (the raster's outputs, then the refiner on one input in float64);
+     CPU (the raster's outputs, then the float32 frame through a refiner at
+     gain P7_REFINER_GAIN, held to P7_FRAME_TOL, with a third pass under
+     TF32 that the hold must see);
   8. the training step at full width: 3 warm-up and 5 timed steps of batch 1
      through `train_on_batches` (creation, deform, 32-channel rasterization
      forward and backward, refiner, LPIPS loss, Adam over the inferer and
@@ -125,7 +127,24 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      and device busy; K5 on
      the creation's z-buffer inputs, K2 on frame 0's face table and K1 on frame
      0 against their plain versions; then the same files at micro widths on the
-     card against the CPU (UV terms where the texel masks agree).
+     card against the CPU (UV terms where the texel masks agree);
+ 17. the multi-device paths on one card (`parallel/`, the parallel train
+     steps): (a) an NCCL world of one in this process: make_parallel_train_step
+     for 3 steps at phase 8's widths bit-equal to make_train_step when fed its
+     gradients, then timed on the real loss beside it and held, on step 1's
+     gradients and the parameters after it, to 10 times the gap between two
+     make_train_step runs, the parallel eval step,
+     the frames-DP render of 8 bench frames bit-equal to phase 4's frames, and
+     the row-band wrapper bit-equal to rasterize; (b) in this process, the 4
+     bands of 128 x 512 of bench frame 0 by render_band (four K1; four K6 and
+     no K1 under bf16_rows, which must move the bands off the f32 ones)
+     against the full frame, the frame shards of 2 ranks against
+     the sequential frames, and the four band K1 times beside one full-frame
+     K1; (c) 2 gloo ranks spawned on cuda:0: a micro-width data-parallel step
+     of batch 2, the ranks' parameters bit-equal, loss and gradient against
+     one process's; then knn_mean_sq_dist on frame 0's Gaussians, card
+     against CPU. A second card is not needed and NCCL between cards is not
+     run.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -196,6 +215,7 @@ from guava_renderer_tpu_torch.ops.gsplat import (  # noqa: E402
     resident_count, resident_ids, resident_keys, round_colors_bf16, stream_rows)
 from guava_renderer_tpu_torch.ops.gsplat_project import project_gaussians, tile_rect  # noqa: E402
 from guava_renderer_tpu_torch.ops import meshraster as opsmesh  # noqa: E402
+from guava_renderer_tpu_torch.ops.knn import knn_mean_sq_dist  # noqa: E402
 from guava_renderer_tpu_torch.ops.meshraster import (  # noqa: E402
     bin_mesh, bin_triangles, rasterize_mesh)
 from guava_renderer_tpu_torch.testing import (  # noqa: E402
@@ -212,7 +232,12 @@ from guava_renderer_tpu_torch.train.lpips import LPIPS, init_lpips_  # noqa: E40
 from guava_renderer_tpu_torch.train.pipeline import (  # noqa: E402
     PipelineStatics, make_loss_fn, make_models)
 from guava_renderer_tpu_torch.train.trainstep import (  # noqa: E402
-    make_sample_scan_step, make_train_state, make_train_step, scrub_nan_grads, split_batch)
+    make_parallel_eval_step, make_parallel_train_step, make_sample_scan_step, make_train_state,
+    make_train_step, scrub_nan_grads, split_batch)
+from guava_renderer_tpu_torch.parallel import mesh  # noqa: E402
+from guava_renderer_tpu_torch.parallel.batch_render import make_batch_frame_renderer  # noqa: E402
+from guava_renderer_tpu_torch.parallel.sharded_render import (  # noqa: E402
+    band_prep, rasterize_row_sharded, render_band)
 from guava_renderer_tpu_torch.utils.config import load_config  # noqa: E402
 from guava_renderer_tpu_torch.utils.logging_utils import TRACE_FILE  # noqa: E402
 from guava_renderer_tpu_torch.utils.video import read_video, to_uint8  # noqa: E402
@@ -407,6 +432,25 @@ TEST_WRAPPER = (
 P16_SEED = 16
 P16_CREATIONS = 3              # timed, after one warm-up
 P16_FRAMES = 20
+# phase 17: the multi-device paths on one card
+P17_BACKEND = "nccl"           # (a)'s world of one
+P17_STEPS = 3                  # training steps of each run of (a), from one start
+P17_FRAMES = 8                 # bench frames of the frames-DP render
+P17_BANDS = 4                  # (b): 128-row bands of the 512^2 frame
+P17_RANKS = 2                  # (c): gloo ranks on cuda:0
+P17_BAND_TOL = 2e-5            # f32 bands vs the full frame, of each value floored at 1
+P17_BF16_FACTOR = 2.0          # bf16 bands vs the bf16 frame, in units of that frame's distance
+                               # from the f32 frame (K6's hi + lo means round with the band shift)
+P17_BF16_MOVES = 1e-4          # bf16 bands vs the f32 bands, at least (of each value floored at
+                               # 1): a band blended by K1 instead of K6 reads 0
+P17_DRIFT_FACTOR = 10.0        # (a): the parallel run on the real loss vs a make_train_step run,
+                               # in units of the gap between two make_train_step runs (K3 adds
+                               # by float atomics), on step 1's gradients and the parameters
+                               # after it (later steps: Adam can flip whole blocks by ~lr)
+P17_LOSS_RTOL = 1e-5           # (c): the DP loss vs the one-process batch-2 step's
+P17_GRAD_TOL = 1e-4            # (c): the DP gradient vs the one-process mean of the two samples'
+                               # gradients, of each tensor's largest entry (K3 adds by atomics)
+P17_KNN_RTOL = 1e-5            # knn_mean_sq_dist card vs CPU, of the largest value
 
 
 def say(phase, msg):
@@ -2799,6 +2843,337 @@ def real_schema(smi):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+def p17_counts():
+    torch.cuda.synchronize()
+    return {"K1": k1.launches, "K2": k2.launches, "K3": k1.bwd_launches,
+            "K4": k2.bwd_launches, "K5": k5.launches, "K6": k1.bf16_launches}
+
+
+def p17_zero():
+    k1.launches = k1.bwd_launches = k1.bf16_launches = 0
+    k2.launches = k2.bwd_launches = k5.launches = 0
+
+
+def p17_micro(device, batch_size):
+    """The micro pipeline's model, loss and batch on `device` (seed 0)."""
+    tp = make_micro_pipeline(batch_size=batch_size, seed=0, device=device)
+    model = torch.nn.ModuleDict({"inferer": tp.statics.inferer, "renderer": tp.statics.renderer})
+    return model, make_loss_fn(tp.statics, None), tp.batch
+
+
+def p17_rank(group):
+    """Phase 17 (c): one gloo rank of a micro-width data-parallel step of batch
+    P17_RANKS, one sample a rank, all ranks on cuda:0."""
+    model, loss_fn, batch = p17_micro(group.device, P17_RANKS)
+    mesh.replicate(model, group)
+    state = make_train_state(model, learning_rate=TRAIN_LR)
+    p17_zero()
+    loss, _ = make_parallel_train_step(loss_fn, state, group)(mesh.shard_batch(batch, group))
+    counts = p17_counts()
+    return {"loss": float(loss), "launches": counts,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "grads": {n: None if p.grad is None else p.grad.cpu()
+                      for n, p in model.named_parameters()},
+            "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}
+
+
+def p17_train(group):
+    """Phase 17 (a), training: P17_STEPS steps of batch 1 at phase 8's widths from
+    one start by make_train_step (the gradients kept), by make_parallel_train_step
+    on a world of one fed those gradients (a loss whose gradient is each step's
+    kept gradient: the parameters must come out bit-equal), and by
+    make_parallel_train_step on the real loss (timed; K3 adds by float atomics, so
+    its gradients and the parameters they lead to differ from run to run by
+    rounding: a second make_train_step run gives that gap, and the parallel run
+    is held to P17_DRIFT_FACTOR times it on step 1's gradients and on the
+    parameters after step 1; after later steps Adam's ~lr·sign(g) updates can
+    part whole blocks of small-gradient entries, so those are only reported).
+    Then the parallel eval step against the plain one."""
+    tcfg = InfererConfig(image_size=SIZE, uvmap_size=UV, invtanfov=INVTANFOV)
+    tsc = make_train_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, batch_size=1,
+                           device=DEV)
+    statics, lpips, state, loss_fn = train_setup(tsc, tcfg, TRAIN_LR)
+    model = state.model
+    params = list(model.parameters())
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def run(step_of, loss):
+        """-> ms and losses a step, each step's gradients, the parameters after
+        the last step and after the first."""
+        model.load_state_dict(start)
+        step = step_of(loss, make_train_state(model, learning_rate=TRAIN_LR))
+        ms, losses, grads = [], [], []
+        for t in range(P17_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value, _ = step(tsc.batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(value))
+            grads.append([None if p.grad is None else p.grad.detach().clone() for p in params])
+            if t == 0:
+                first = [p.detach().clone() for p in params]
+        return ms, losses, grads, [p.detach().clone() for p in params], first
+
+    def replay(batch, it):
+        kept = grads_s[it]
+        return sum((p * g).sum() for p, g in zip(params, kept) if g is not None), {}
+
+    def parallel(loss, st):
+        return make_parallel_train_step(loss, st, group)
+
+    ms_s, losses_s, grads_s, params_s, first_s = run(make_train_step, loss_fn)
+    _, _, grads_r, params_r, _ = run(parallel, replay)
+    for t in range(P17_STEPS):
+        if not all((a is None and b is None) or (a is not None and b is not None
+                                                 and torch.equal(a, b))
+                   for a, b in zip(grads_r[t], grads_s[t])):
+            raise SystemExit(f"[17] the parallel step changed the gradient of step {t}")
+    if not all(torch.equal(a, b) for a, b in zip(params_r, params_s)):
+        raise SystemExit("[17] the parallel step on one rank is not bit-equal to make_train_step")
+    del grads_r, params_r
+    counts = p17_counts()
+    ms_p, losses_p, grads_p, params_p, first_p = run(parallel, loss_fn)
+    counts = {k: v - counts[k] for k, v in p17_counts().items()}
+    if not all(math.isfinite(v) for v in losses_p):
+        raise SystemExit(f"[17] parallel losses {losses_p}")
+    _, losses_s2, grads_s2, params_s2, first_s2 = run(make_train_step, loss_fn)  # the rerun gap
+    drift = {"grad": p17_gap(grads_p[0], grads_s[0]), "first": p17_gap(first_p, first_s),
+             "last": p17_gap(params_p, params_s)}
+    gap = {"grad": p17_gap(grads_s2[0], grads_s[0]), "first": p17_gap(first_s2, first_s),
+           "last": p17_gap(params_s2, params_s)}
+    del grads_p, grads_s2, params_s2, first_p, first_s2
+    # held: step 1's gradients by their largest entry, the parameters after it by L2
+    for k, i in (("grad", 0), ("first", 1)):
+        if not drift[k][i] <= P17_DRIFT_FACTOR * gap[k][i]:
+            raise SystemExit(f"[17] the parallel run on the real loss lies {drift[k]} from "
+                             f"make_train_step's ({k}; relative, L2), two make_train_step runs "
+                             f"{gap[k]} (tol x{P17_DRIFT_FACTOR})")
+    eval_fn = trainer_loop.eval_metrics_fn(statics)
+    model.load_state_dict(start)
+    plain = eval_fn(tsc.batch)
+    par = make_parallel_eval_step(eval_fn, group)(tsc.batch)
+    if par != plain:
+        raise SystemExit(f"[17] parallel eval {par} differs from {plain}")
+    return {"ms_single": ms_s, "ms_parallel": ms_p, "losses_single": losses_s,
+            "losses_parallel": losses_p, "losses_rerun": losses_s2, "drift": drift, "gap": gap,
+            "eval": par, "launches": counts, "n_params": sum(p.numel() for p in params)}
+
+
+def p17_pair(tr, key):
+    d, g = tr["drift"][key], tr["gap"][key]
+    return f"({d[0]:.3g}, {d[1]:.3g}) vs ({g[0]:.3g}, {g[1]:.3g})"
+
+
+def p17_gap(got, want):
+    """Two runs' tensors (gradients or parameters, None where a parameter has
+    no gradient) -> (the largest over tensors of max |got - want| / max |want|,
+    the L2 norm of got - want over all of them). The two must have gradients
+    on the same parameters."""
+    if [g is None for g in got] != [w is None for w in want]:
+        raise SystemExit("[17] the two runs have gradients on different parameters")
+    pairs = [(g.float(), w.float()) for g, w in zip(got, want) if w is not None]
+    rel = max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)) for g, w in pairs)
+    l2 = math.sqrt(sum(float(((g - w).double() ** 2).sum()) for g, w in pairs))
+    return rel, l2
+
+
+def multi_device(smi, pipe, main_avatar, targets, seq, sc):
+    """Phase 17: the multi-device paths on one card. (a) a world of one
+    (P17_BACKEND) on this process: the parallel train and eval steps at phase 8's
+    widths, the frames-DP render of P17_FRAMES bench frames (bit-equal to phase 4's
+    render_frame frames) and the row-band wrapper (one band: bit-equal to
+    rasterize); (b) in this process, the P17_BANDS bands of bench frame 0 by
+    render_band (K1, then K6 under bf16_rows) against the full frame, and the frame
+    shards of P17_RANKS x 2 ranks against the sequential frames, with the band K1
+    times; (c) P17_RANKS gloo ranks on cuda:0, a micro-width data-parallel step of
+    batch P17_RANKS against one process's; then knn_mean_sq_dist on frame 0's
+    Gaussians, card against CPU. Returns (seconds, the launches of K1-K6)."""
+    t17 = time.perf_counter()
+    p17_zero()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="p17_", dir=ROOT / "build"))
+    frames = targets[:P17_FRAMES]
+    bg = torch.linspace(0, 1, 32, device=DEV)
+    st = RasterizeSettings(tile=TILE)
+    st16 = st._replace(bf16_rows=True)
+    with torch.no_grad():
+        body, flame = _unpack_params(_batched_params(frames[0]["params"], DEV))
+        gs = deform_avatar(main_avatar, sc.ehm, pipe.faces, body, flame, plan=pipe.plan,
+                           compact_faces=pipe.cfaces)
+    args = (gs.xyz[0], gs.colors[0], gs.opacity[0], gs.scaling[0], gs.rotation[0])
+    try:
+        # (a)
+        t0 = time.perf_counter()
+        group = mesh.init_group(0, 1, DEV, str(work / "rendezvous"), P17_BACKEND)
+        init_s = time.perf_counter() - t0
+        try:
+            tr = p17_train(group)
+            torch.cuda.empty_cache()
+            before = p17_counts()
+            brend = make_batch_frame_renderer(pipe, group)
+            brend(main_avatar, frames[:1])                  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renders, raws = brend(main_avatar, frames)
+            torch.cuda.synchronize()
+            dp_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+            if not all(torch.equal(renders[i], seq[i]["render"])
+                       and torch.equal(raws[i], seq[i]["raw"]) for i in range(len(frames))):
+                raise SystemExit("[17] the frames-DP render is not bit-equal to render_frame")
+            with torch.no_grad():
+                full = rasterize(*args, sc.cam, bg, st)
+                sharded = rasterize_row_sharded(*args, sc.cam, bg, group, st)
+            if not all(torch.equal(a, b) for a, b in zip(full, sharded)):
+                raise SystemExit("[17] the row-band wrapper on one rank is not rasterize")
+            frame_counts = {k: v - before[k] for k, v in p17_counts().items()}
+        finally:
+            mesh.close_group()
+        say(17, f"(a) a {P17_BACKEND} world of one on {torch.cuda.get_device_name(0)} (joined in "
+                f"{init_s:.2f} s): make_parallel_train_step bit-equal to make_train_step over "
+                f"{P17_STEPS} steps of batch 1 at phase 8's widths ({tr['n_params'] / 1e6:.1f}M "
+                f"parameters) when fed the same gradients; on the real loss ms/step parallel "
+                f"{', '.join(f'{v:.1f}' for v in tr['ms_parallel'])} vs single "
+                f"{', '.join(f'{v:.1f}' for v in tr['ms_single'])}, losses "
+                f"{tr['losses_parallel']} vs {tr['losses_single']} (a rerun "
+                f"{tr['losses_rerun']}); from make_train_step's run, as (largest entry over "
+                f"each tensor's largest, L2), the parallel run vs a make_train_step rerun: "
+                f"step 1's gradients {p17_pair(tr, 'grad')}, the parameters after step 1 "
+                f"{p17_pair(tr, 'first')} (held: the gradients' first, the parameters' L2, "
+                f"to x{P17_DRIFT_FACTOR} the rerun's; K3's atomics), after step {P17_STEPS} "
+                f"{p17_pair(tr, 'last')} (not held); launches {tr['launches']}; "
+                f"eval {tr['eval']} equal to the plain eval; frames-DP {len(frames)} frames "
+                f"{dp_ms:.2f} ms/frame, bit-equal to phase 4's; the row-band wrapper bit-equal "
+                f"to rasterize; frame launches {frame_counts}; on {smi}")
+
+        # (b)
+        before = p17_counts()
+        with torch.no_grad():
+            full16 = rasterize(*args, sc.cam, bg, st16)
+            c0 = p17_counts()
+            bands = [render_band(d, P17_BANDS, *args, sc.cam, bg, st) for d in range(P17_BANDS)]
+            c1 = p17_counts()
+            bands16 = [render_band(d, P17_BANDS, *args, sc.cam, bg, st16)
+                       for d in range(P17_BANDS)]
+            c2 = p17_counts()
+        blends = {"f32": (c1["K1"] - c0["K1"], c1["K6"] - c0["K6"]),
+                  "bf16_rows": (c2["K1"] - c1["K1"], c2["K6"] - c1["K6"])}
+        if blends != {"f32": (P17_BANDS, 0), "bf16_rows": (0, P17_BANDS)}:
+            raise SystemExit(f"[17] the bands' blends (K1, K6) {blends}: each f32 band must be "
+                             f"one K1 and each bf16_rows band one K6")
+        moved = max(float(((torch.cat([b[i] for b in bands16], 1)
+                            - torch.cat([b[i] for b in bands], 1)).abs()
+                           / full[i].abs().clamp(min=1.0)).max()) for i in (0, 2))
+        if not moved > P17_BF16_MOVES:
+            raise SystemExit(f"[17] the bf16_rows bands lie {moved} from the f32 bands, not "
+                             f"over {P17_BF16_MOVES}: bf16_rows was not honoured")
+        errs = {}
+        for key, got, want in (("f32", bands, full), ("bf16", bands16, full16)):
+            for i, name in ((0, "color"), (2, "invdepth")):
+                cat = torch.cat([b[i] for b in got], 1)
+                errs[key, name] = float(((cat - want[i]).abs()
+                                         / want[i].abs().clamp(min=1.0)).max())
+        bf16_ref = max(float(((full16[i] - full[i]).abs() / full[i].abs().clamp(min=1.0)).max())
+                       for i in (0, 2))
+        if not max(errs["f32", n] for n in ("color", "invdepth")) <= P17_BAND_TOL:
+            raise SystemExit(f"[17] f32 bands vs the full frame {errs} > {P17_BAND_TOL}")
+        if not (bf16_ref > 0 and max(errs["bf16", n] for n in ("color", "invdepth"))
+                <= P17_BF16_FACTOR * bf16_ref):
+            raise SystemExit(f"[17] bf16 bands vs the bf16 frame {errs}, the bf16 frame vs f32 "
+                             f"{bf16_ref}")
+        per_rank = len(frames) // P17_RANKS
+        shards = [pipe.render_frame(main_avatar, t) for r in range(P17_RANKS)
+                  for t in frames[r * per_rank:(r + 1) * per_rank]]
+        if not all(torch.equal(a["render"], b["render"]) for a, b in zip(shards, seq)):
+            raise SystemExit("[17] the frame shards differ from the sequential frames")
+        band_counts = {k: v - before[k] for k, v in p17_counts().items()}
+        preps = [band_prep(d, P17_BANDS, *args, sc.cam, st) for d in range(P17_BANDS)]
+        whole = band_prep(0, 1, *args, sc.cam, st)
+        h = SIZE // P17_BANDS
+        band_ms = [cuda_ms(lambda p=p: k1.blend(p.rows, p.order, p.ranges, bg, h, SIZE, TILE))
+                   for p in preps]
+        full_ms = cuda_ms(lambda: k1.blend(whole.rows, whole.order, whole.ranges, bg, SIZE, SIZE,
+                                           TILE))
+        say(17, f"(b) {P17_BANDS} bands of {h}x{SIZE} of bench frame 0 ({args[0].shape[0]} "
+                f"Gaussians) by render_band: f32 (K1) vs the full frame color "
+                f"{errs['f32', 'color']:.3g}, invdepth {errs['f32', 'invdepth']:.3g} of the "
+                f"magnitude floored at 1 (tol {P17_BAND_TOL}); bf16_rows (K6) vs the bf16 frame "
+                f"{errs['bf16', 'color']:.3g} / {errs['bf16', 'invdepth']:.3g}, where the bf16 "
+                f"frame lies {bf16_ref:.3g} from f32 (tol x{P17_BF16_FACTOR}) and the bf16 "
+                f"bands {moved:.3g} from the f32 bands (over {P17_BF16_MOVES}); the bands' "
+                f"blends (K1, K6) {blends}; {P17_RANKS} frame "
+                f"shards of {per_rank} bit-equal to the sequential frames; K1 a band "
+                f"{', '.join(f'{v:.4f}' for v in band_ms)} ms ({sum(band_ms):.4f} summed; "
+                f"instances {', '.join(str(p.order.numel()) for p in preps)}) vs one full-frame "
+                f"K1 {full_ms:.4f} ms ({whole.order.numel()} instances); launches {band_counts}; "
+                f"on {smi}")
+
+        # (c)
+        t0 = time.perf_counter()
+        ranks = mesh.launch(P17_RANKS, p17_rank, devices=[torch.device("cuda", 0)] * P17_RANKS,
+                            backend="gloo")
+        launch_s = time.perf_counter() - t0
+        model, loss_fn, batch = p17_micro(DEV, P17_RANKS)
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        state_b = make_train_state(model, learning_rate=TRAIN_LR)
+        loss_b, _ = make_train_step(loss_fn, state_b)(batch)
+        shard_grads = {}
+        for r in range(P17_RANKS):
+            model.load_state_dict(start)
+            model.zero_grad(set_to_none=True)
+            loss_fn(split_batch(batch, r), 0)[0].backward()
+            for n, p in model.named_parameters():
+                if p.grad is not None:
+                    shard_grads[n] = shard_grads.get(n, 0) + p.grad / P17_RANKS
+        r0, r1 = ranks[0], ranks[1]
+        if any(r["jax"] for r in ranks):
+            raise SystemExit("[17] a rank imported JAX")
+        if not all(torch.equal(r0["params"][n], r1["params"][n]) for n in r0["params"]):
+            raise SystemExit("[17] the gloo ranks' parameters differ")
+        loss_err = abs(r0["loss"] - float(loss_b)) / abs(float(loss_b))
+        grad_err = max(float((r0["grads"][n] - g.cpu()).abs().max()
+                             / g.abs().max().clamp(min=1e-30)) for n, g in shard_grads.items())
+        if sorted(n for n, g in r0["grads"].items() if g is not None) != sorted(shard_grads) \
+                or not loss_err <= P17_LOSS_RTOL or not grad_err <= P17_GRAD_TOL:
+            raise SystemExit(f"[17] gloo DP step: loss {loss_err} (tol {P17_LOSS_RTOL}), "
+                             f"gradient {grad_err} (tol {P17_GRAD_TOL})")
+        rank_counts = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+        say(17, f"(c) {P17_RANKS} gloo ranks on cuda:0 (spawned, joined and done in "
+                f"{launch_s:.1f} s): a micro-width DP step of batch {P17_RANKS}, parameters "
+                f"bit-equal on the ranks, loss {r0['loss']:.6f} vs one process's batch-"
+                f"{P17_RANKS} step {float(loss_b):.6f} ({loss_err:.3g}, tol {P17_LOSS_RTOL}), "
+                f"gradient vs one process's mean of the samples' {grad_err:.3g} of each tensor's "
+                f"largest entry (tol {P17_GRAD_TOL}); the ranks' launches {rank_counts}")
+        del model, start, shard_grads
+
+        # kNN on the bench avatar's Gaussians
+        pts = args[0].detach().contiguous()
+        knn_mean_sq_dist(pts)                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = knn_mean_sq_dist(pts)
+        torch.cuda.synchronize()
+        knn_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = knn_mean_sq_dist(pts.cpu())
+        knn_cpu_ms = (time.perf_counter() - t0) * 1e3
+        knn_err = float((got.cpu() - want).abs().max() / want.abs().max())
+        if not knn_err <= P17_KNN_RTOL:
+            raise SystemExit(f"[17] knn card vs CPU {knn_err} > {P17_KNN_RTOL}")
+        say(17, f"knn_mean_sq_dist over {pts.shape[0]} Gaussians: card {knn_ms:.2f} ms, CPU "
+                f"{knn_cpu_ms:.1f} ms (host clock), card vs CPU {knn_err:.3g} of the largest "
+                f"(tol {P17_KNN_RTOL}); on {smi}")
+
+        launches = {k: tr["launches"][k] + frame_counts[k] + band_counts[k]
+                    + rank_counts.get(k, 0) for k in band_counts}
+        for k in ("K1", "K2", "K3", "K5", "K6"):
+            if launches[k] == 0:
+                raise SystemExit(f"[17] {k} was not launched: {launches}")
+        return time.perf_counter() - t17, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -3538,37 +3913,45 @@ def main():
     t16, p16_launches = real_schema(smi)
     say(16, f"phase 16 in {t16:.1f} s on {smi}; its launches {p16_launches}")
 
+    # ---- 17. the multi-device paths on one card ----
+    t17, p17 = multi_device(smi, pipe, main_avatar, targets, seq, sc)
+    say(17, f"phase 17 in {t17:.1f} s on {smi}; its launches {p17}")
+    for entry in variant_kernels:
+        if entry["name"].startswith("K6"):
+            entry["launches"] += p17["K6"]
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1018",
          "launches": (launches["K1"] + p14_launches["K1"] + p15_launches["K1"]
-                      + p16_launches["K1"]),
+                      + p16_launches["K1"] + p17["K1"]),
          "max_abs_err": err1, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None, **occ["K1"], "at_tiles": at_tiles},
         {"name": "K2 face gather", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:125",
-         "launches": launches["K2"] + p15_launches["K2"] + p16_launches["K2"],
+         "launches": launches["K2"] + p15_launches["K2"] + p16_launches["K2"] + p17["K2"],
          "max_abs_err": err2, "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": k2_lib_ms, "floor_ms": k2_floor_ms, **k2_occ},
         {"name": "K3 tile blend backward", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend_bwd.cu",
          "replaces": "guava_renderer_tpu/ops/gsplat.py:1457",
-         "launches": train_launches["K3"] + p14_launches["K3"],
+         "launches": train_launches["K3"] + p14_launches["K3"] + p17["K3"],
          "max_abs_err": err3, "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_bound_by, "library_ms": None, **occ["K3"]},
         {"name": "K4 face gather backward", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/facegather_bwd.cu",
          "replaces": "guava_renderer_tpu/ops/facegather.py:143",
-         "launches": planned_launches["K4"], "max_abs_err": err4, "ms": k4_ms,
+         "launches": planned_launches["K4"] + p17["K4"], "max_abs_err": err4, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": "bytes",
          "library_ms": k4_lib_ms},
         {"name": "K5 mesh z-buffer", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/meshraster.cu",
          "replaces": "guava_renderer_tpu/ops/meshraster.py:39",
          "launches": (create_launches + train_launches["K5"] + accum_launches["K5"]
-                      + p14_launches["K5"] + p15_launches["K5"] + p16_launches["K5"]),
+                      + p14_launches["K5"] + p15_launches["K5"] + p16_launches["K5"]
+                      + p17["K5"]),
          "max_abs_err": err5, "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
          "bound_by": k5_bound_by, "library_ms": None, "model_cull": cull5,
          **k5_occ},

@@ -53,6 +53,7 @@ class Runtime:
     device: torch.device
     # MODEL.raster entries the port does not read, with their values
     ignored_raster: dict = field(default_factory=dict)
+    synthetic_assets: bool = False        # as build_runtime was asked (a rank rebuilds it so)
 
     @property
     def inferer(self) -> UbodyGaussianInferer:
@@ -215,7 +216,7 @@ def build_runtime(cfg: ConfigDict, synthetic_assets: bool = False, device="cuda"
     return Runtime(
         cfg=cfg, smplx=smplx, flame=flame, extras=extras, ehm=ehm, statics=statics,
         lpips=LPIPS("alex").to(dev), num_vertices=smplx.num_vertices, device=dev,
-        ignored_raster=ignored,
+        ignored_raster=ignored, synthetic_assets=synthetic_assets,
     )
 
 

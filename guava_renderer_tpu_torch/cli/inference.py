@@ -15,7 +15,9 @@ side-by-side MP4 and speed_info.json with {infer_time ms, render_speed
 fps}); `render_cross_set` drives one identity with another video's motion;
 `render_novel_views` orbits the camera. Each builds one
 `FramePipeline.from_runtime(rt)` a call. Times are taken with the device
-synchronized (`utils/logging_utils.py:SpeedMeter`).
+synchronized (`utils/logging_utils.py:SpeedMeter`). Run on every rank of a
+process group (`parallel/mesh.py`), `render_set(dp_frames=True)` splits
+each video's frames over the ranks (`parallel/batch_render.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from ..data.codec import write_image
 from ..device import resolve_device
 from ..ops.facegather import build_face_sort_plan, compact_faces
 from ..ops.gsplat import RasterizeSettings
+from ..parallel.batch_render import make_batch_frame_renderer, pad_to_multiple
+from ..parallel.mesh import barrier, broadcast_object, current_group
 from ..utils.camera_orbit import generate_novel_view_poses
 from ..utils.logging_utils import SpeedMeter
 from ..utils.ply import save_gaussian_ply
@@ -243,8 +247,30 @@ def _export_ply(path: str, avatar, faces) -> None:
         gs.xyz, gs.colors[..., :3], gs.opacity, gs.scaling, gs.rotation)))
 
 
-def _visible_devices(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def _replicate_avatar(pipe: FramePipeline, avatar, group):
+    """Rank 0's created avatar, plan and compact faces on every rank's pipeline."""
+    payload = None
+    if group.rank == 0:
+        payload = (GaussianAvatar(*(t.cpu() for t in avatar)),
+                   None if pipe.plan is None else pipe.plan.to("cpu"),
+                   None if pipe.cfaces is None else pipe.cfaces.cpu())
+    av, plan, cfaces = broadcast_object(payload, group)
+    pipe.plan = None if plan is None else plan.to(pipe.device)
+    pipe.cfaces = None if cfaces is None else cfaces.to(pipe.device)
+    return GaussianAvatar(*(t.to(pipe.device) for t in av))
+
+
+class _Targets:
+    """The target records of dataset indices, loaded when sliced."""
+
+    def __init__(self, dataset, indices: list):
+        self.dataset, self.indices = dataset, indices
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, sel: slice) -> list:
+        return [self.dataset[i]["target"] for i in self.indices[sel]]
 
 
 def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
@@ -254,15 +280,22 @@ def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
 
     group_frames=G>1 renders through `FramePipeline.render_frames` in groups
     of G, timed as one region per call as the JAX package times it.
-    dp_frames with one visible device renders sequentially, as the JAX
-    package does with one device; the frames-data-parallel render over
-    several is module slice 10 and raises here."""
+
+    dp_frames on every rank of a process group of n > 1 (`parallel/mesh.py`;
+    `cli.test --devices n --dp_render` starts them) renders each video's
+    frames data-parallel: rank 0 creates the avatar (timed) and writes its
+    PLY, every rank gets rank 0's avatar and plan, the frames are padded to
+    a multiple of n with the last one and split over the ranks, gathered
+    once, and rank 0 writes every PNG, the video and speed_info.json. Rank 0
+    returns the results, the other ranks {}. Outside a group, or in a group
+    of one, dp_frames renders sequentially, as the JAX package does on one
+    device: a process drives one device."""
     os.makedirs(save_path, exist_ok=True)
     pipe = _pipeline(rt, params)
-    if dp_frames and _visible_devices(pipe.device) > 1:
-        raise NotImplementedError(
-            "dp_frames over more than one device is not ported yet (module slice 10: "
-            "parallel/batch_render.py)")
+    group = current_group()
+    dp = dp_frames and group is not None and group.size > 1
+    lead = not dp or group.rank == 0
+    brend = make_batch_frame_renderer(pipe, group) if dp else None
 
     by_video: dict[str, list[int]] = {}
     for i, key in enumerate(dataset.frames):
@@ -274,12 +307,17 @@ def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
         scene_dir = os.path.join(save_path, vid)
         rdir = os.path.join(scene_dir, saving_name)
         gdir = os.path.join(scene_dir, "gt")
-        os.makedirs(rdir, exist_ok=True)
-        os.makedirs(gdir, exist_ok=True)
+        if lead:
+            os.makedirs(rdir, exist_ok=True)
+            os.makedirs(gdir, exist_ok=True)
 
-        avatar = _timed_creation(pipe, speed, dataset[idxs[0]]["source"])
-        if export_ply:
-            _export_ply(os.path.join(scene_dir, "avatar.ply"), avatar, pipe.faces)
+        avatar = None
+        if lead:
+            avatar = _timed_creation(pipe, speed, dataset[idxs[0]]["source"])
+            if export_ply:
+                _export_ply(os.path.join(scene_dir, "avatar.ply"), avatar, pipe.faces)
+        if dp:
+            avatar = _replicate_avatar(pipe, avatar, group)
 
         sel = idxs if max_frames is None else idxs[:max_frames]
         frames = []
@@ -292,7 +330,17 @@ def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
             _save_png(os.path.join(rdir, name), render)
             frames.append(np.concatenate([gt, render], axis=1))
 
-        if group_frames > 1 and sel:
+        if dp and sel:
+            targets = _Targets(dataset, pad_to_multiple(sel, group.size)[0])
+            for t in targets[slice(group.rank, group.rank + 1)]:    # warm-up
+                pipe.render_frame(avatar, t)
+            barrier(group)
+            with speed.time_frames(len(sel)):
+                renders, _ = brend(avatar, targets)
+            if lead:
+                for j, i in enumerate(sel):
+                    dump(i, dataset[i], {"render": renders[j]})
+        elif group_frames > 1 and sel:
             recs = [dataset[i] for i in sel]
             targets = [r["target"] for r in recs]
             pipe.render_frames(avatar, targets[:group_frames], group_frames)   # warm-up
@@ -308,10 +356,13 @@ def render_set(rt, params, dataset, save_path: str, saving_name: str = "render",
                 with speed.time_frame():
                     out = pipe.render_frame(avatar, rec["target"])
                 dump(i, rec, out)
-        _write_video(os.path.join(scene_dir, f"{vid}_compare.mp4"), frames)
-        speed.dump(os.path.join(scene_dir, "speed_info.json"))
-        results[vid] = {"frames": len(sel), "infer_time_ms": speed.infer_time_ms,
-                        "render_fps": speed.render_fps}
+        if lead:
+            _write_video(os.path.join(scene_dir, f"{vid}_compare.mp4"), frames)
+            speed.dump(os.path.join(scene_dir, "speed_info.json"))
+            results[vid] = {"frames": len(sel), "infer_time_ms": speed.infer_time_ms,
+                            "render_fps": speed.render_fps}
+    if dp:
+        barrier(group)
     return results
 
 

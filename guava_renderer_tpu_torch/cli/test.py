@@ -3,7 +3,7 @@
     python -m guava_renderer_tpu_torch.cli.test -c <config> -m <model dir>
         --data_path <tracked data> [-s <save dir>] [--max_frames N]
         [--render_cross_act | --render_static_novel_views | --render_dynamic_novel_views]
-        [--synthetic_assets] [--device cuda|cpu]
+        [--dp_render [-d N]] [--synthetic_assets] [--device cuda|cpu]
 
 Modes: self-reenactment (default; `cli/inference.py:render_set`),
 --render_cross_act, --render_dynamic_novel_views and
@@ -13,6 +13,14 @@ the port's checkpoints under <model dir>/checkpoints (best, then latest),
 then <model dir>/converted_params.pt; random weights only with
 --allow_random_weights or --synthetic_assets. The run is on the card unless
 `--device cpu`.
+
+`-d` picks the devices as `cli/train.py:parse_devices` reads it (default
+'0', card 0; a lone number under 8 is that card, a '0,1' list those cards;
+with `--device cpu` a number is a count of gloo ranks, the counterpart of
+the JAX `--host_devices`). `--dp_render` renders the self-reenactment's
+frames data-parallel over them, one rank spawned a device (NCCL on the
+cards), and rank 0 writes every file. The other modes, and `--dp_render` on
+one device, render on the first.
 """
 
 from __future__ import annotations
@@ -22,6 +30,20 @@ import os
 
 
 def test(args):
+    from ..parallel.mesh import current_group, launch
+    from .train import parse_devices
+
+    devices = parse_devices(args.devices, args.device)
+    if args.dp_render and len(devices) > 1 and current_group() is None:
+        return launch(len(devices), _test_rank, args, device=args.device, devices=devices)[0]
+    return _test(args, None if current_group() else devices[0])
+
+
+def _test_rank(group, args):
+    return _test(args, group.device)
+
+
+def _test(args, device=None):
     from ..data.tracked import TrackedVideoDataset
     from ..utils.logging_utils import profiler_trace
     from .context import build_runtime, load_model_params, resolve_config
@@ -32,7 +54,8 @@ def test(args):
         cfg.set_readonly(False)
         cfg.MODEL.bf16_refiner = True
         cfg.set_readonly(True)
-    rt = build_runtime(cfg, synthetic_assets=args.synthetic_assets, device=args.device)
+    rt = build_runtime(cfg, synthetic_assets=args.synthetic_assets,
+                       device=device or args.device)
     params, source = load_model_params(
         rt, args.model_path, args.basemodel,
         allow_random=args.allow_random_weights or args.synthetic_assets)
@@ -62,15 +85,19 @@ def test(args):
             results = render_set(rt, params, ds, save_path, saving_name=args.saving_name,
                                  max_frames=args.max_frames, dp_frames=args.dp_render,
                                  group_frames=args.group_frames)
-            print(results)
+            if results:         # rank 0 of a --dp_render run, or the one process
+                print(results)
     return results
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config_name", "-c", default=None, type=str)
+    parser.add_argument("--devices", "-d", default="0", type=str,
+                        help="a card index or a 0,1 list (default card 0); with --device cpu a "
+                             "count")
     parser.add_argument("--dp_render", action="store_true",
-                        help="render frames data-parallel over the visible devices "
+                        help="render frames data-parallel over -d devices, a rank each "
                              "(one device: sequential)")
     parser.add_argument("--group_frames", type=int, default=0,
                         help="render G frames per call of FramePipeline.render_frames")

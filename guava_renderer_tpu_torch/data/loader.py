@@ -4,7 +4,11 @@
 Replaces torch DataLoader + DistributedSampler (ref: main/train.py:44-58,
 main/trainer.py:52-58): per-host shard selection, shuffled epoch order,
 numpy collation, and a background thread that keeps `prefetch` batches
-ready so host decode overlaps device compute. With `pin_memory` (and a
+ready so host decode overlaps device compute. With `rank` and
+`world_size`, every rank draws the same epoch order from the same seed and
+loads only its contiguous slice [r·B/n, (r+1)·B/n) of each global batch of B
+(the 'data' sharding of the JAX package's mesh); `host_id`/`num_hosts` is
+the separate multi-host stride over the epoch. With `pin_memory` (and a
 CUDA device present) the producer also turns each batch into pinned
 tensors, so `to_device` queues its copies without waiting on them.
 """
@@ -62,7 +66,13 @@ class PrefetchLoader:
         num_hosts: int = 1,
         drop_last: bool = True,
         pin_memory: bool = False,
+        rank: int = 0,
+        world_size: int = 1,
     ):
+        if batch_size % world_size:
+            raise ValueError(f"batch_size {batch_size} does not split over {world_size} ranks")
+        if world_size > 1 and not drop_last:
+            raise ValueError("a loader split over ranks drops the last partial batch")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,6 +82,8 @@ class PrefetchLoader:
         self.num_hosts = num_hosts
         self.drop_last = drop_last
         self.pin_memory = pin_memory and torch.cuda.is_available()
+        self.rank = rank
+        self.world_size = world_size
         self._epoch = 0
 
     def _epoch_indices(self) -> np.ndarray:
@@ -94,6 +106,8 @@ class PrefetchLoader:
         n_batches = len(idx) // self.batch_size
         if not self.drop_last and len(idx) % self.batch_size:
             n_batches += 1
+        k = self.batch_size // self.world_size
+        mine = slice(self.rank * k, (self.rank + 1) * k)
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
@@ -101,7 +115,8 @@ class PrefetchLoader:
         def producer():
             try:
                 for b in range(n_batches):
-                    q.put(self.load_batch(idx[b * self.batch_size : (b + 1) * self.batch_size]))
+                    sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
+                    q.put(self.load_batch(sel[mine] if self.world_size > 1 else sel))
             finally:
                 q.put(stop)
 

@@ -99,6 +99,10 @@ class TrackedVideoDataset:
             ]
         self._store: RecordStore | None = None
 
+    def __getstate__(self) -> dict:
+        # the store's native handle stays behind; a copy (a spawned rank's) reopens it
+        return {**self.__dict__, "_store": None}
+
     # lazily opened (fork-safe for worker processes/threads)
     @property
     def store(self) -> RecordStore:

@@ -4,12 +4,14 @@ Each source is compiled by its own `nvcc` process, all started together,
 for `sm_90a` with a plain C interface; the objects are linked into one
 shared library that `ctypes` loads. The library's name carries a hash of
 the sources and flags, so an edit rebuilds. The build happens on first
-use, never at import, into `build/torch_kernels/` at the repository root.
+use, never at import, into `build/torch_kernels/` at the repository root,
+under a file lock, so ranks that start together compile it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -133,12 +135,21 @@ def _run_all(cmds: list[list[str]]) -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact build exists; return the .so path."""
-    global build_seconds, build_log
+    """Compile the kernels unless this exact build exists; return the .so path.
+    One process compiles at a time; the others wait and load its build."""
     lib_path = BUILD_DIR / f"libguava_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib_path.exists():
+            _compile(lib_path)
+    return lib_path
+
+
+def _compile(lib_path: Path) -> None:
+    global build_seconds, build_log
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{Path(s).stem}_{os.getpid()}.o" for s in SOURCES]
@@ -152,7 +163,6 @@ def build() -> Path:
     for o in objs:
         o.unlink()
     build_seconds = time.perf_counter() - t0
-    return lib_path
 
 
 def library() -> ctypes.CDLL:

@@ -6,8 +6,15 @@ no weight decay; parameters whose name contains `style_mlp` or
 rate from 1 to `lr_decay_rate` over `lr_decay_iter` steps. Non-finite
 gradient entries are set to 0 before the update (`nan_to_num_`).
 
-The multi-device variants of the JAX module (`make_parallel_*`,
-`make_accum_train_step`) are not here yet.
+The multi-device steps run on every rank of a process group
+(`parallel/mesh.py`), each on its local slice of the global batch:
+`make_parallel_train_step`, `make_accum_train_step` (microbatches on the
+host) and `make_parallel_eval_step`. The gradients, the loss and the metrics
+are averaged over the ranks by explicit all-reduces after `backward()`, the
+counterpart of the JAX step's `jax.lax.pmean`, and the NaN scrub runs after
+that mean, as it runs first in the JAX optimizer: a non-finite entry on one
+rank is zeroed on every rank. Every rank then takes the same update from
+the same numbers, so the ranks' parameters stay bit-equal.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from typing import Callable
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_mean_
 
 SLOW_MARKERS = ("style_mlp", "final_linear")   # parameter groups at 0.1x lr
 SLOW_SCALE = 0.1
@@ -101,20 +110,36 @@ def _update(state: TrainState, count_scrubbed: bool):
     return scrubbed
 
 
+def _accumulate(loss_fn: Callable, state: TrainState, batches: list):
+    """Zero the gradients, then backward each batch's loss (over len(batches)
+    when there are several), so `.grad` holds the mean gradient. -> the mean
+    loss and metrics, detached."""
+    state.optimizer.zero_grad(set_to_none=True)
+    n = len(batches)
+    loss_sum, metric_sum = None, {}
+    for batch in batches:
+        loss, metrics = loss_fn(batch, state.iteration)
+        (loss if n == 1 else loss / n).backward()     # .grad accumulates over the batches
+        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        for k, v in metrics.items():
+            metric_sum[k] = metric_sum[k] + v.detach() if k in metric_sum else v.detach()
+    return loss_sum / n, {k: v / n for k, v in metric_sum.items()}
+
+
+def _finish(state: TrainState, loss, metrics, count_scrubbed: bool):
+    scrubbed = _update(state, count_scrubbed)
+    if scrubbed is not None:
+        metrics["scrubbed_grads"] = scrubbed
+    return loss, metrics
+
+
 def make_train_step(loss_fn: Callable, state: TrainState, count_scrubbed: bool = False):
     """loss_fn(batch, iteration) -> (loss, metrics). -> step(batch) -> (loss,
     metrics), detached; the step updates `state` in place. With
     `count_scrubbed`, metrics gains "scrubbed_grads"."""
 
     def step(batch):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, state.iteration)
-        loss.backward()
-        scrubbed = _update(state, count_scrubbed)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if scrubbed is not None:
-            metrics["scrubbed_grads"] = scrubbed
-        return loss.detach(), metrics
+        return _finish(state, *_accumulate(loss_fn, state, [batch]), count_scrubbed)
 
     return step
 
@@ -134,6 +159,11 @@ def batch_size(batch) -> int:
     return batch.shape[0]
 
 
+def split_samples(batch) -> list:
+    """A nested batch as a list of batches of 1."""
+    return [split_batch(batch, i) for i in range(batch_size(batch))]
+
+
 def make_sample_scan_step(loss_fn: Callable, state: TrainState, count_scrubbed: bool = False):
     """`make_train_step` with per-sample gradient accumulation: the batch is
     processed one sample at a time, each as a batch of 1, and the gradients
@@ -142,19 +172,84 @@ def make_sample_scan_step(loss_fn: Callable, state: TrainState, count_scrubbed: 
     activations held at any time are one sample's."""
 
     def step(batch):
-        B = batch_size(batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_sum, metric_sum = None, {}
-        for i in range(B):
-            loss, metrics = loss_fn(split_batch(batch, i), state.iteration)
-            (loss / B).backward()          # .grad accumulates over the samples
-            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-            for k, v in metrics.items():
-                metric_sum[k] = metric_sum[k] + v.detach() if k in metric_sum else v.detach()
-        scrubbed = _update(state, count_scrubbed)
-        metrics = {k: v / B for k, v in metric_sum.items()}
-        if scrubbed is not None:
-            metrics["scrubbed_grads"] = scrubbed
-        return loss_sum / B, metrics
+        return _finish(state, *_accumulate(loss_fn, state, split_samples(batch)), count_scrubbed)
 
     return step
+
+
+# -- the multi-device steps ----------------------------------------------------
+
+def _reduce(state: TrainState, group, loss, metrics):
+    """Average the gradients, the loss and the metrics over the ranks, in
+    place of `.grad`: one all-reduce of the loss, the metrics and which
+    parameters have a gradient on this rank, then one of the gradients a
+    dtype. A parameter with a gradient on some rank gets the mean (zeros
+    where a rank has none); one with a gradient on no rank keeps None."""
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    keys = sorted(metrics)
+    dev = group.device
+    head = torch.cat([
+        torch.tensor([p.grad is not None for p in params], dtype=torch.float32, device=dev),
+        loss.reshape(1).float().to(dev),
+        *(metrics[k].reshape(1).float().to(dev) for k in keys)])
+    all_reduce_mean_([head], group)
+    live = [p for p, h in zip(params, head[:len(params)].tolist()) if h > 0]
+    for p in live:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_mean_([p.grad for p in live], group)
+    n = len(params)
+    return head[n].to(loss.dtype), {k: head[n + 1 + i].to(metrics[k].dtype)
+                                    for i, k in enumerate(keys)}
+
+
+def make_parallel_train_step(loss_fn: Callable, state: TrainState, group,
+                             count_scrubbed: bool = False):
+    """The data-parallel step on one rank of `group` (`parallel/mesh.py`),
+    counterpart of the JAX `make_parallel_train_step`: step(local_batch)
+    runs this rank's slice of the global batch, averages gradients, loss and
+    metrics over the ranks, then scrubs and updates. -> (loss, metrics), the
+    means over the ranks. The JAX step's `sample_scan` is
+    `make_accum_train_step` over `split_samples(local_batch)`."""
+
+    def step(batch):
+        loss, metrics = _reduce(state, group, *_accumulate(loss_fn, state, [batch]))
+        return _finish(state, loss, metrics, count_scrubbed)
+
+    return step
+
+
+def make_accum_train_step(loss_fn: Callable, state: TrainState, group,
+                          count_scrubbed: bool = False):
+    """Gradient accumulation over microbatches on the host, counterpart of
+    the JAX `make_accum_train_step`: step(microbatches) takes this rank's
+    slice of each microbatch, accumulates the mean gradient over them, and
+    then all ranks do one all-reduce and one update. The effective batch is
+    the microbatches' global size summed. It equals the JAX step (a pmean
+    per microbatch, then the mean over microbatches) up to the order of
+    float sums."""
+
+    def step(microbatches):
+        if not microbatches:
+            raise ValueError("make_accum_train_step needs at least one microbatch")
+        loss, metrics = _reduce(state, group, *_accumulate(loss_fn, state, list(microbatches)))
+        return _finish(state, loss, metrics, count_scrubbed)
+
+    return step
+
+
+def make_parallel_eval_step(metrics_fn: Callable, group):
+    """Evaluation on one rank of `group`, counterpart of the JAX
+    `make_parallel_eval_step`: peval(local_batch) -> {name: float}, each
+    metric of `metrics_fn(local_batch)` (floats or 0-d tensors) averaged
+    over the ranks in float32 (the reference's `fabric.all_reduce(mean)`)."""
+
+    def peval(batch):
+        metrics = metrics_fn(batch)
+        keys = sorted(metrics)
+        vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32).reshape(())
+                            .to(group.device) for k in keys])
+        all_reduce_mean_([vals], group)
+        return dict(zip(keys, vals.tolist()))
+
+    return peval

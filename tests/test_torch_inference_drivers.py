@@ -221,10 +221,18 @@ def test_dp_frames_on_one_device_is_sequential(runs, tmp_path):
 
 
 def test_dp_frames_over_devices_names_slice_10(runs, tmp_path, monkeypatch):
+    """dp_frames over several devices runs on the ranks of a process group
+    (tests/test_torch_batch_render.py renders over two); outside a group a
+    process drives one device, so more visible cards change no frame."""
     trt = runs["trt"]
-    monkeypatch.setattr(tinf, "_visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tinf.render_set(trt, trt.model, runs["tds"], str(tmp_path), dp_frames=True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    res = tinf.render_set(trt, trt.model, runs["tds"], str(tmp_path), dp_frames=True,
+                          max_frames=2, export_ply=False)
+    assert tinf.current_group() is None and res["vid000"]["frames"] == 2
+    seq = runs["tmp"] / "port" / "self" / "vid000" / "render"
+    for name in ("000000.png", "000001.png"):
+        assert np.array_equal(read_rgb(str(tmp_path / "vid000" / "render" / name)),
+                              read_rgb(str(seq / name))), name
 
 
 def test_params_must_be_the_runtimes_modules(runs, tmp_path):

@@ -77,6 +77,16 @@ def test_body_model_modules_are_in_the_walk(rel):
     assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
 
 
+MULTI_DEVICE_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/batch_render.py",
+                        "parallel/sharded_render.py", "ops/knn.py", "train/trainstep.py",
+                        "cli/trainer_loop.py", "cli/train.py", "cli/test.py", "cli/inference.py")
+
+
+@pytest.mark.parametrize("rel", MULTI_DEVICE_MODULES)
+def test_multi_device_modules_are_in_the_walk(rel):
+    assert ROOT / "guava_renderer_tpu_torch" / rel in PORT_FILES
+
+
 def _build_runtime_on_real_files(micro):
     """build_runtime on micro_synthetic.yaml pointed at reduced-count schema files."""
     from guava_renderer_tpu_torch.cli.context import build_runtime
@@ -110,6 +120,7 @@ def _entry_points():
     from guava_renderer_tpu_torch.cli import app, create_avatar, metrics, render_motion
     from guava_renderer_tpu_torch.cli import test as cli_test
     from guava_renderer_tpu_torch.cli.inference import render_set
+    from guava_renderer_tpu_torch.parallel.mesh import launch
     import bench_torch
 
     micro = str(ROOT / "configs" / "train" / "micro_synthetic.yaml")
@@ -152,6 +163,17 @@ def _entry_points():
         "cli.app": lambda: app.GenerationService(types.SimpleNamespace(model_path=micro)),
         "render_set": lambda: render_set(
             build_runtime(load_config(micro), synthetic_assets=True), None, None, scratch),
+        "parallel.launch": lambda: launch(2, print),
+        "cli.train --devices 2": lambda: cli_train.main(["-c", micro, "--synthetic_assets",
+                                                         "--devices", "2"]),
+        "cli.test --dp_render -d 2": lambda: cli_test.main(
+            ["-c", micro, "--data_path", scratch, "--synthetic_assets", "--dp_render",
+             "-d", "2"]),
+        "cli.train --devices 0,1": lambda: cli_train.main(["-c", micro, "--synthetic_assets",
+                                                           "--devices", "0,1"]),
+        "cli.test --dp_render -d 0,1": lambda: cli_test.main(
+            ["-c", micro, "--data_path", scratch, "--synthetic_assets", "--dp_render",
+             "-d", "0,1"]),
     }
 
 
@@ -166,7 +188,9 @@ def _entry_points():
                                   "bench_torch", "cli.train",
                                   "tools.make_teacher_dataset", "run_training", "cli.test",
                                   "cli.create_avatar", "cli.render_motion", "cli.metrics",
-                                  "cli.app", "render_set"])
+                                  "cli.app", "render_set", "parallel.launch",
+                                  "cli.train --devices 2", "cli.test --dp_render -d 2",
+                                  "cli.train --devices 0,1", "cli.test --dp_render -d 0,1"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Without device=, an entry point asks for CUDA and raises when there
     is none, instead of running on the CPU."""

@@ -94,10 +94,21 @@ def test_accumulated_remat_run_follows_the_batched_run(micro, monkeypatch):
 
 
 def test_several_devices_raise_naming_slice_10(micro):
+    """n_devices=2 outside a process group: run_training launches two gloo
+    ranks itself (tests/test_torch_parallel.py runs it on ranks), and rank
+    0's trained state lands in the caller's modules."""
     tmp, cfg = micro
-    rt = tctx.build_runtime(cfg, synthetic_assets=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        trainer_loop.run_training(rt, None, None, str(tmp / "x"), n_devices=2)
+    run_dir = str(tmp / "two")
+    rt, state = _run(cfg, run_dir, max_iters=1, n_devices=2)
+    assert state.iteration == 1 and state.model is not None
+    saved = torch.load(os.path.join(run_dir, "checkpoints", "latest.pt"), map_location="cpu",
+                       weights_only=False)["state"]["model"]
+    got = rt.model.state_dict()
+    assert sorted(saved) == sorted(got)
+    assert all(torch.equal(v, got[k]) for k, v in saved.items())
+    log = (Path(run_dir) / "train_log.txt").read_text()
+    assert log.count("iter 1:") == 1 and "validation @1" in log
+    assert "data-parallel over 2 ranks" in log
 
 
 def test_entry_point_in_a_subprocess(micro):
