@@ -3192,7 +3192,7 @@ def main():
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     say(2, f"kernels built and loaded in {spent:.2f} s "
-           f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
+           f"({'built now' if build.build_log else 'cached'})")
     for ln in ptxas:
         say(2, f"  ptxas: {ln}")
 

@@ -29,9 +29,11 @@ from ..core.rotations import (
 )
 from ..kernels.facegather import face_gather
 from ..ops.facegather import FaceSortPlan
+from ..utils.logging_utils import spanned
 from .state import GaussianAvatar, GaussianSet
 
 
+@spanned("guava.deform")
 def deform_avatar(
     avatar: GaussianAvatar,
     ehm: EhmModel,

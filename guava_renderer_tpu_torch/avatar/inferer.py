@@ -27,6 +27,7 @@ from ..models.dpt_encoder import DinoDPTEncoder
 from ..models.layers import harmonic_embedding, leaky_relu, resize_bilinear
 from ..models.styleunet import StyleUNet
 from ..ops.meshraster import rasterize_mesh, visible_faces_mask
+from ..utils.logging_utils import spanned
 from .sampling import grid_sample, project_to_ndc
 from .state import GaussianAvatar
 
@@ -198,6 +199,7 @@ def assemble_avatar(vertex_gs: dict, uv_gs: dict, v_template: torch.Tensor,
     )
 
 
+@spanned("guava.create")
 def build_avatar(
     inferer: UbodyGaussianInferer,
     ehm: EhmModel,

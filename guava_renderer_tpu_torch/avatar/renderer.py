@@ -25,6 +25,7 @@ from ..core.cameras import Camera
 from ..models.layers import resize_bilinear
 from ..models.styleunet import SimpleUNet, StyleUNet
 from ..ops.gsplat import RasterizeSettings, rasterize
+from ..utils.logging_utils import span
 from .state import GaussianSet
 
 
@@ -83,7 +84,8 @@ class GaussianRenderer(nn.Module):
             x = resize_bilinear(x.permute(0, 3, 1, 2), (rsize, rsize)).permute(0, 2, 3, 1)
         if self.refiner_dtype is not None:
             x = x.to(self.refiner_dtype)
-        rgb = self.neural_refiner(x).float()
+        with span("guava.refine"):
+            rgb = self.neural_refiner(x).float()
         if (rsize, rsize) != (H, W):
             rgb = resize_bilinear(rgb.permute(0, 3, 1, 2), (H, W)).permute(0, 2, 3, 1)
         return rgb

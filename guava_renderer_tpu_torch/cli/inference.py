@@ -41,7 +41,7 @@ from ..ops.gsplat import RasterizeSettings
 from ..parallel.batch_render import make_batch_frame_renderer, pad_to_multiple
 from ..parallel.mesh import barrier, broadcast_object, current_group
 from ..utils.camera_orbit import generate_novel_view_poses
-from ..utils.logging_utils import SpeedMeter
+from ..utils.logging_utils import SpeedMeter, span, spanned
 from ..utils.ply import save_gaussian_ply
 from ..utils.video import to_uint8, write_video
 
@@ -55,10 +55,11 @@ _PARAM_KEYS = (
 
 def _batched_params(rec_params: dict, device: torch.device) -> dict:
     """Records are per-frame (unbatched): add the batch dim to every known key."""
-    return {
-        k: torch.as_tensor(v, dtype=torch.float32, device=device)[None]
-        for k, v in rec_params.items() if k in _PARAM_KEYS
-    }
+    with span("guava.sync.params"):     # each an upload from pageable host memory
+        return {
+            k: torch.as_tensor(v, dtype=torch.float32, device=device)[None]
+            for k, v in rec_params.items() if k in _PARAM_KEYS
+        }
 
 
 def _unpack_params(p: dict) -> tuple[BodyParams, FlameParams]:
@@ -175,6 +176,7 @@ class FramePipeline:
             self.plan = self.cfaces = None
         return avatar, extra
 
+    @spanned("guava.render_frame")
     @torch.no_grad()
     def render_frame(self, avatar: GaussianAvatar, target: dict) -> dict:
         """-> {"render": (H, W, 3) in [0, 1], "raw": (H, W, 3) in [0, 1],
@@ -182,7 +184,8 @@ class FramePipeline:
         body, flame = _unpack_params(_batched_params(target["params"], self.device))
         gs = deform_avatar(avatar, self.ehm, self.faces, body, flame,
                            plan=self.plan, compact_faces=self.cfaces)
-        w2c = torch.as_tensor(target["w2c"], dtype=torch.float32, device=self.device)
+        with span("guava.sync.params"):
+            w2c = torch.as_tensor(target["w2c"], dtype=torch.float32, device=self.device)
         cam = Camera.from_w2c(w2c, self.tanfov, self.image_size, self.image_size)
         out = self.renderer(gs, cam)
         return {

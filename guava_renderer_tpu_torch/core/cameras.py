@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from ..utils.logging_utils import span
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -27,7 +29,8 @@ class Camera:
     @staticmethod
     def from_w2c(w2c: torch.Tensor, tanfov: float, width: int, height: int) -> "Camera":
         """Camera from a (4, 4) world-to-camera matrix and a square fov."""
-        tf = torch.tensor(tanfov, dtype=torch.float32, device=w2c.device)
+        with span("guava.sync.camera"):     # an upload from pageable host memory
+            tf = torch.tensor(tanfov, dtype=torch.float32, device=w2c.device)
         return Camera(R=w2c[:3, :3], t=w2c[:3, 3], tanfovx=tf, tanfovy=tf,
                       width=width, height=height)
 
@@ -59,7 +62,8 @@ class Camera:
         V = torch.zeros((4, 4), dtype=torch.float32, device=self.R.device)
         V[:3, :3] = self.R
         V[:3, 3] = self.t
-        V[3, 3] = 1.0
+        with span("guava.sync.camera"):     # a host scalar stored into the device's matrix
+            V[3, 3] = 1.0
         return V
 
     def proj_matrix(self) -> torch.Tensor:
@@ -67,9 +71,10 @@ class Camera:
         P = torch.zeros((4, 4), dtype=torch.float32, device=self.R.device)
         P[0, 0] = 1.0 / self.tanfovx
         P[1, 1] = 1.0 / self.tanfovy
-        P[2, 2] = zf / (zf - zn)
-        P[2, 3] = -(zf * zn) / (zf - zn)
-        P[3, 2] = 1.0
+        with span("guava.sync.camera"):     # host scalars stored into the device's matrix
+            P[2, 2] = zf / (zf - zn)
+            P[2, 3] = -(zf * zn) / (zf - zn)
+            P[3, 2] = 1.0
         return P
 
     def full_proj_matrix(self) -> torch.Tensor:

@@ -11,6 +11,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.logging_utils import span
 from .rotations import axis_angle_to_matrix
 
 
@@ -52,7 +53,10 @@ def rigid_transform_chain(
     B, J = rot_mats.shape[:2]
     dev = rot_mats.device
 
-    parent_pos = joints_rest[:, torch.as_tensor(np.maximum(parents_np, 0), device=dev)].clone()
+    # the tree's indices are uploaded from pageable host memory
+    with span("guava.sync.lbs"):
+        parents_t = torch.as_tensor(np.maximum(parents_np, 0), device=dev)
+    parent_pos = joints_rest[:, parents_t].clone()
     parent_pos[:, 0] = 0.0
     rel_j = joints_rest - parent_pos
 
@@ -63,8 +67,9 @@ def rigid_transform_chain(
 
     world = local.clone()
     for idx in kinematic_levels(parents_np):
-        par = torch.as_tensor(parents_np[idx], device=dev)
-        idx_t = torch.as_tensor(idx, device=dev)
+        with span("guava.sync.lbs"):
+            par = torch.as_tensor(parents_np[idx], device=dev)
+            idx_t = torch.as_tensor(idx, device=dev)
         world[:, idx_t] = world[:, par] @ local[:, idx_t]
 
     joints_posed = world[:, :, :3, 3]

@@ -21,6 +21,8 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.logging_utils import span
+
 
 def collate(records: list[dict]) -> dict:
     """Stack a list of nested dicts of numpy arrays along a new batch axis."""
@@ -123,7 +125,8 @@ class PrefetchLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with span("guava.loader.wait"):
+                item = q.get()
             if item is stop:
                 break
             yield item
@@ -150,5 +153,6 @@ class DeviceBatches:
 
     def __iter__(self):
         for batch in self.loader:
-            self.last = to_device(batch, self.device)
+            with span("guava.loader.to_device"):
+                self.last = to_device(batch, self.device)
             yield self.last

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.logging_utils import spanned
 from . import build
 
 GEOM = 8
@@ -516,6 +517,7 @@ def _launch(entry, args, height, width, tile, device, extra_out=(), params=()):
     return color, invdepth, final_t
 
 
+@spanned("guava.blend")
 def _forward(rows, order, ranges, bg, height, width, tile):
     """K1 on CUDA tensors, `blend_plain` on CPU tensors."""
     global launches
@@ -624,6 +626,7 @@ def occupancy(tile):
     return out
 
 
+@spanned("guava.blend")
 def blend_bwd(rows, order, ranges, bg, color, invdepth, final_t, g_color, g_invdepth, tile):
     """d_rows (P, 44) of the blend: K3 on CUDA tensors, `blend_bwd_plain` on
     CPU tensors. Arguments as `blend_bwd_plain`."""

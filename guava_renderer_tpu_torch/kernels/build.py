@@ -16,7 +16,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -93,7 +92,6 @@ SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None   # wall time of this process's build (None: not built)
 build_log = ""                       # nvcc/ptxas output (registers, spills per kernel)
 
 
@@ -149,9 +147,8 @@ def build() -> Path:
 
 
 def _compile(lib_path: Path) -> None:
-    global build_seconds, build_log
+    global build_log
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{Path(s).stem}_{os.getpid()}.o" for s in SOURCES]
     build_log = _run_all([
         [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s, ()), "-c", str(CSRC / s), "-o", str(o)]
@@ -162,7 +159,6 @@ def _compile(lib_path: Path) -> None:
     os.replace(tmp, lib_path)
     for o in objs:
         o.unlink()
-    build_seconds = time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:

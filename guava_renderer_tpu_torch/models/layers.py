@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.logging_utils import span, spanned
+
 
 class _LeakyReLU(torch.autograd.Function):
     """`F.leaky_relu` whose derivative at exactly 0 is 1, as the JAX
@@ -74,6 +76,7 @@ def _ac_weights(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+@spanned("guava.resize")
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int], align_corners: bool = False,
                     antialias: bool = True) -> torch.Tensor:
     """NCHW bilinear resize as two interpolation-matrix products.
@@ -90,8 +93,9 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int], align_corners: bool 
         wy, wx = _ac_weights(H, h), _ac_weights(W, w)
     else:
         wy, wx = _halfpix_weights(H, h, antialias), _halfpix_weights(W, w, antialias)
-    wy = torch.as_tensor(wy, dtype=x.dtype, device=x.device)
-    wx = torch.as_tensor(wx, dtype=x.dtype, device=x.device)
+    with span("guava.sync.resize_weights"):
+        wy = torch.as_tensor(wy, dtype=x.dtype, device=x.device)
+        wx = torch.as_tensor(wx, dtype=x.dtype, device=x.device)
     x = torch.einsum("bchw,oh->bcow", x, wy)
     return torch.einsum("bchw,ow->bcho", x, wx)
 

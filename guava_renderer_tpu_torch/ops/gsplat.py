@@ -50,6 +50,8 @@ from ..kernels import blend as kblend
 from ..kernels.blend import (
     ALPHA_MIN, CHANNELS, GEOM, ROW, blend, blend_bf16, blend_resident, blend_stream)
 from ..kernels.gather_rows import decode_ids, gather_resident
+from ..utils import logging_utils
+from ..utils.logging_utils import span, spanned
 from .gsplat_project import ProjectedGaussians, project_gaussians, tile_rect
 
 # The largest resident table the JAX package accepts (8 MB of its 512-byte
@@ -118,7 +120,9 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
     n_tiles = gx * ((height + tile - 1) // tile)
     x0, y0, rw, rh, counts = _tile_counts(proj, width, height, tile)
     ends = torch.cumsum(counts, 0)
-    n = int(ends[-1]) if ends.numel() else 0   # the one host sync of binning
+    with span("guava.sync.bin"):
+        n = int(ends[-1]) if ends.numel() else 0
+    logging_utils.count("instances", n)
 
     gid = torch.repeat_interleave(torch.arange(counts.shape[0], device=device), counts,
                                   output_size=n)
@@ -130,7 +134,8 @@ def bin_gaussians(proj: ProjectedGaussians, width: int, height: int, tile: int):
     _, perm = torch.sort((tiles << 32) | depth_bits, stable=True)
     order = gid[perm].to(torch.int32)
     ranges = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)
-    ranges[1:] = torch.cumsum(torch.bincount(tiles, minlength=n_tiles), 0)
+    with span("guava.sync.bin"):     # bincount reads the largest tile id back
+        ranges[1:] = torch.cumsum(torch.bincount(tiles, minlength=n_tiles), 0)
     return ranges.to(torch.int32), order
 
 
@@ -203,6 +208,7 @@ class RasterPrep(NamedTuple):
     radius: torch.Tensor   # (P,) projected pixel radius
 
 
+@spanned("guava.bin")
 def _project_and_bin(means3d, colors, opacities, scales, quats, cam: Camera,
                      settings: RasterizeSettings):
     """-> (detached projection, RasterPrep)."""

@@ -21,6 +21,7 @@ import torch
 
 from ..core.cameras import Camera, project_points
 from ..kernels.meshraster import TRI, mesh_zbuffer
+from ..utils.logging_utils import span
 
 
 class MeshRasterResult(NamedTuple):
@@ -71,7 +72,8 @@ def bin_triangles(tri: torch.Tensor, tri_z: torch.Tensor, height: int, width: in
     rh = torch.clamp(y1 - y0, min=0).long()
     counts = torch.where(valid, rw * rh, 0)
     ends = torch.cumsum(counts, 0)
-    n = int(ends[-1]) if F else 0            # the one host sync of binning
+    with span("guava.sync.mesh_bin"):
+        n = int(ends[-1]) if F else 0
 
     fid = torch.repeat_interleave(torch.arange(F, device=device), counts, output_size=n)
     local = torch.arange(n, device=device) - (ends - counts)[fid]
@@ -80,7 +82,8 @@ def bin_triangles(tri: torch.Tensor, tri_z: torch.Tensor, height: int, width: in
     _, perm = torch.sort(tiles, stable=True)
     inst_fid = fid[perm].to(torch.int32)
     ranges = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)
-    ranges[1:] = torch.cumsum(torch.bincount(tiles, minlength=n_tiles), 0)
+    with span("guava.sync.mesh_bin"):     # bincount reads the largest tile id back
+        ranges[1:] = torch.cumsum(torch.bincount(tiles, minlength=n_tiles), 0)
 
     tris = torch.zeros((F, 3, TRI // 3), dtype=torch.float32, device=device)
     tris[..., :2] = tri
@@ -123,7 +126,8 @@ def visible_faces_mask(face_idx: torch.Tensor, num_faces: int) -> torch.Tensor:
     flat = face_idx.reshape(-1).long()
     # empty pixels (-1) go to a spare slot that is cut off
     mask = torch.zeros(num_faces + 1, dtype=torch.bool, device=face_idx.device)
-    mask[torch.where(flat >= 0, flat, num_faces)] = True
+    with span("guava.sync.visible_faces"):     # a host scalar stored through an index
+        mask[torch.where(flat >= 0, flat, num_faces)] = True
     return mask[:num_faces]
 
 

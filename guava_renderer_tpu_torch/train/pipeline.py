@@ -26,6 +26,7 @@ from ..cli.inference import _unpack_params as unpack_params
 from ..core.cameras import Camera
 from ..models.layers import resize_bilinear
 from ..ops.gsplat import RasterizeSettings
+from ..utils.logging_utils import span
 from .losses import LossConfig, OptimizationLoss
 from .lpips import LPIPS
 
@@ -100,8 +101,9 @@ def make_loss_fn(statics: PipelineStatics, lpips: LPIPS | None, remat: bool = Fa
             out = fwd(batch)
         renders, raw_renders, uv_local_xyz, uv_scales = out
         tgt = batch["target"]
-        total, metrics = opt_loss(renders, raw_renders, tgt["image"], tgt["mask"],
-                                  tgt.get("boxes"), uv_local_xyz, uv_scales, iteration)
+        with span("guava.loss"):
+            total, metrics = opt_loss(renders, raw_renders, tgt["image"], tgt["mask"],
+                                      tgt.get("boxes"), uv_local_xyz, uv_scales, iteration)
         return total, dict(metrics, total=total)
 
     return loss_fn

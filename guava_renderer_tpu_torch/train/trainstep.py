@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import all_reduce_mean_
+from ..utils.logging_utils import span, spanned
 
 SLOW_MARKERS = ("style_mlp", "final_linear")   # parameter groups at 0.1x lr
 SLOW_SCALE = 0.1
@@ -102,6 +103,7 @@ def scrub_nan_grads(model: nn.Module, count: bool = False) -> torch.Tensor | Non
     return n
 
 
+@spanned("guava.update")
 def _update(state: TrainState, count_scrubbed: bool):
     scrubbed = scrub_nan_grads(state.model, count=count_scrubbed)
     state.optimizer.step()
@@ -119,7 +121,8 @@ def _accumulate(loss_fn: Callable, state: TrainState, batches: list):
     loss_sum, metric_sum = None, {}
     for batch in batches:
         loss, metrics = loss_fn(batch, state.iteration)
-        (loss if n == 1 else loss / n).backward()     # .grad accumulates over the batches
+        with span("guava.backward"):
+            (loss if n == 1 else loss / n).backward()     # .grad accumulates over the batches
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         for k, v in metrics.items():
             metric_sum[k] = metric_sum[k] + v.detach() if k in metric_sum else v.detach()
@@ -138,6 +141,7 @@ def make_train_step(loss_fn: Callable, state: TrainState, count_scrubbed: bool =
     metrics), detached; the step updates `state` in place. With
     `count_scrubbed`, metrics gains "scrubbed_grads"."""
 
+    @spanned("guava.train_step")
     def step(batch):
         return _finish(state, *_accumulate(loss_fn, state, [batch]), count_scrubbed)
 
@@ -171,6 +175,7 @@ def make_sample_scan_step(loss_fn: Callable, state: TrainState, count_scrubbed: 
     result equals the batched step up to the order of float sums, while the
     activations held at any time are one sample's."""
 
+    @spanned("guava.train_step")
     def step(batch):
         return _finish(state, *_accumulate(loss_fn, state, split_samples(batch)), count_scrubbed)
 
@@ -212,6 +217,7 @@ def make_parallel_train_step(loss_fn: Callable, state: TrainState, group,
     means over the ranks. The JAX step's `sample_scan` is
     `make_accum_train_step` over `split_samples(local_batch)`."""
 
+    @spanned("guava.train_step")
     def step(batch):
         loss, metrics = _reduce(state, group, *_accumulate(loss_fn, state, [batch]))
         return _finish(state, loss, metrics, count_scrubbed)
@@ -229,6 +235,7 @@ def make_accum_train_step(loss_fn: Callable, state: TrainState, group,
     per microbatch, then the mean over microbatches) up to the order of
     float sums."""
 
+    @spanned("guava.train_step")
     def step(microbatches):
         if not microbatches:
             raise ValueError("make_accum_train_step needs at least one microbatch")

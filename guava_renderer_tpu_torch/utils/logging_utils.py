@@ -6,16 +6,30 @@ persistence (ref: utils/general_utils.py:294-308, main/trainer.py:234-255,
 main/test.py:46-50,90-94), plus a torch.profiler trace hook that writes a
 Chrome trace (the reference has no profiler integration at all — SURVEY
 §5.1).
+
+Spans and counters. `span(name)` marks a layer of the frame or the step
+(`guava.render_frame`, `guava.bin`, `guava.sync.<site>` around a place
+where the host waits on the device, ...) as a `record_function`
+annotation: it shares the device trace's clock and shows in every
+torch.profiler trace, `profiler_trace`'s included. `count(name, n)` adds to
+an in-memory counter. Both record only while a torch profiler records;
+otherwise a span or a count costs one test of the profiler's flag, with no
+dispatcher call and no allocation. While they record, each span also adds
+its host seconds to `span_seconds()`, and `counters()` holds the counts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
+import threading
 import time
 from collections import defaultdict, deque
+
+from torch.autograd import profiler as _profiler
 
 
 def build_logger(name: str, dump_dir: str | None = None) -> logging.Logger:
@@ -133,7 +147,15 @@ TRACE_FILE = "trace.json"
 def profiler_trace(log_dir: str | None):
     """Optional torch.profiler trace around a region, written to
     `<log_dir>/trace.json` in the Chrome trace format; device activity is
-    recorded when a CUDA device is present."""
+    recorded when a CUDA device is present.
+
+    The trace carries the port's spans (`span`) beside torch's operations:
+    `guava.render_frame` (a frame), `guava.train_step` (a step) and, inside
+    them, `guava.deform`, `guava.bin`, `guava.blend`, `guava.resize`,
+    `guava.refine`, `guava.create`, `guava.loss`, `guava.backward`,
+    `guava.update`; the loader's `guava.loader.wait` and
+    `guava.loader.to_device`; and `guava.sync.<site>` around each place
+    where the host waits on the device."""
     if not log_dir:
         yield
         return
@@ -148,3 +170,80 @@ def profiler_trace(log_dir: str | None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+# -- spans and counters ---------------------------------------------------------
+
+_lock = threading.Lock()
+_counters: dict[str, float] = {}
+_span_seconds: dict[str, float] = {}
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """A recording span: the profiler's annotation and the host seconds inside it."""
+
+    __slots__ = ("_name", "_annotation", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self):
+        self._annotation = _profiler.record_function(self._name)
+        self._annotation.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        self._annotation.__exit__(*exc)
+        with _lock:
+            _span_seconds[self._name] = _span_seconds.get(self._name, 0.0) + seconds
+        return False
+
+
+def span(name: str):
+    """A context manager marking the layer `name` (`guava.` and the layer)
+    while a torch profiler records; a shared no-op otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n) -> None:
+    """Add `n` to the counter `name` while a torch profiler records."""
+    if _profiler._is_profiler_enabled:
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict:
+    """{counter: its sum} since the last `reset_counters()`."""
+    with _lock:
+        return dict(_counters)
+
+
+def span_seconds() -> dict:
+    """{span: host seconds inside it, summed over its calls} since the last
+    `reset_counters()`."""
+    with _lock:
+        return dict(_span_seconds)
+
+
+def reset_counters() -> None:
+    """Clear the counters and the spans' host seconds."""
+    with _lock:
+        _counters.clear()
+        _span_seconds.clear()
