@@ -144,7 +144,13 @@ Phases (one line each, then a JSON line of the kernels, then a last line
      of batch 2, the ranks' parameters bit-equal, loss and gradient against
      one process's; then knn_mean_sq_dist on frame 0's Gaussians, card
      against CPU. A second card is not needed and NCCL between cards is not
-     run.
+     run;
+ 18. the banded resize R1 (csrc/resize.cu): every resize_bilinear caller's
+     ratio in float32, bfloat16 and float16, NCHW and an NHWC view, forward
+     and adjoint tables, bit-equal to its plain version; the frame's two
+     resizes timed in turns with the same resize as two launches and with
+     F.interpolate(antialias=True) as a yardstick, beside their bytes
+     bound; the training step's largest resizes forward and backward.
 Needs a CUDA device; run from the repository root.
 """
 
@@ -206,6 +212,8 @@ from guava_renderer_tpu_torch.kernels import stream_sum as kt3  # noqa: E402
 from guava_renderer_tpu_torch.kernels import facegather as k2  # noqa: E402
 from guava_renderer_tpu_torch.kernels import gather_rows as k9  # noqa: E402
 from guava_renderer_tpu_torch.kernels import meshraster as k5  # noqa: E402
+from guava_renderer_tpu_torch.kernels import resize as kresize  # noqa: E402
+from guava_renderer_tpu_torch.models import layers  # noqa: E402
 from guava_renderer_tpu_torch.models.layers import harmonic_embedding  # noqa: E402
 from guava_renderer_tpu_torch.models.styleunet import init_params_  # noqa: E402
 from guava_renderer_tpu_torch.ops.facegather import (  # noqa: E402
@@ -270,6 +278,14 @@ TILE = 32
 MESH_TILE = 16
 N_FRAMES = 20
 N_CREATIONS = 5
+# R1 launches of the main path at these sizes: a creation resizes 14 times (DPT's RGB
+# pyramid 4, its fusion path 4, the path and the image to 512, the low-level path 3;
+# the source image 518 -> 512; the ViT grid is 37 already); a training step's backward
+# adds the adjoints of the 7 whose input carries a gradient (the fusion path's 4, the path
+# to 512, the low-level path after its first conv 2). The frame at the refiner's size
+# resizes nothing.
+R1_CREATION = 14
+R1_STEP_BACKWARD = 7
 K1_TOL = 1e-4
 # K3 against its plain version, per row column, as a share of the column's
 # largest gradient: both sum float32 contributions with atomic adds, whose
@@ -451,6 +467,23 @@ P17_LOSS_RTOL = 1e-5           # (c): the DP loss vs the one-process batch-2 ste
 P17_GRAD_TOL = 1e-4            # (c): the DP gradient vs the one-process mean of the two samples'
                                # gradients, of each tensor's largest entry (K3 adds by atomics)
 P17_KNN_RTOL = 1e-5            # knn_mean_sq_dist card vs CPU, of the largest value
+# phase 18: (n_in, n_out, align_corners, antialias) of every resize_bilinear caller
+R1_RATIOS = {
+    "frame down": (2048, 512, False, True), "frame up": (512, 2048, False, True),
+    "refine 720": (720, 512, False, True), "source 518": (518, 512, False, True),
+    "rgb pyramid 148": (518, 148, False, True), "rgb pyramid 74": (518, 74, False, True),
+    "rgb pyramid 37": (518, 37, False, True), "rgb pyramid 19": (518, 19, False, True),
+    "fusion 19": (19, 37, False, False), "fusion 37": (37, 74, False, False),
+    "fusion 74": (74, 148, False, False), "fusion 148": (148, 296, False, False),
+    "dpt path": (296, 512, False, False), "dpt image": (518, 512, False, False),
+    "low x2": (37, 74, True, True), "low x4": (74, 296, True, True),
+    "vit grid down": (37, 16, False, True), "vit grid up": (16, 37, False, True),
+    "styleunet up": (256, 512, False, True), "multiscale /4": (512, 128, False, True),
+    "lpips floor": (16, 32, False, True), "ac 1 to 2": (1, 2, True, True),
+}
+R1_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+R1_BATCH = 6                   # the training step's batch (configs/train/ubody_512.yaml)
+R1_PATH_CHANNELS = 256         # DPT's fusion path (DinoDPTEncoder's hidden)
 
 
 def say(phase, msg):
@@ -3174,6 +3207,145 @@ def multi_device(smi, pipe, main_avatar, targets, seq, sc):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def r1_axes(x, size, align_corners=False, antialias=True):
+    """resize_bilinear's cached tables (layers._resize_axis) of x resized to size."""
+    H, W = x.shape[-2:]
+    return (layers._resize_axis(H, size[0], align_corners, antialias, x.device),
+            layers._resize_axis(W, size[1], align_corners, antialias, x.device))
+
+
+def r1_gap(x, by, bx):
+    """max |R1 - its plain version| of x through the bands (by, bx)."""
+    got = kresize.resize(x, by, bx)
+    want = kresize.resize_plain(x, by, bx)
+    return float((got.float() - want.float()).abs().max())
+
+
+def r1_bytes(x, size):
+    """Least bytes of a resize: x read once and the output written once."""
+    B, C = x.shape[:2]
+    return (x.numel() + B * C * size[0] * size[1]) * x.element_size()
+
+
+def resize_kernel():
+    """Phase 18: R1, the banded resize (kernels/resize.py). (a) every
+    caller's ratio (R1_RATIOS) in float32, bfloat16 and float16, on NCHW and
+    on an NHWC view, forward tables and adjoint tables, bit-equal to the
+    plain version; (b) the frame's two resizes (the (1, 32, 2048^2) NHWC
+    features to 512^2, the (1, 3, 512^2) RGB back to 2048^2) against the
+    plain version, timed in turns with the same resize as two launches
+    through a (B, C, h, W) intermediate (identity tables on the other axis)
+    and with F.interpolate(bilinear, antialias=True), a yardstick that the
+    port never calls; (c) the training step's largest resizes, forward and
+    backward (autograd through resize_bilinear) against the plain version on
+    the forward and adjoint tables. -> the kernels line's R1 entry (main
+    adds its launches: the main path's, counted in phases 6 and 8)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(18)
+    worst, n_checked = 0.0, 0
+    for n_in, n_out, ac, aa in R1_RATIOS.values():
+        m_in, m_out = n_in // 2 + 1, n_out // 2 + 1
+        for dtype in R1_DTYPES:
+            for nhwc in (False, True):
+                shape = (2, n_in, m_in, 5) if nhwc else (2, 5, n_in, m_in)
+                x = torch.randn(shape, generator=g, device=DEV).to(dtype)
+                x = x.permute(0, 3, 1, 2) if nhwc else x
+                ay, ax = r1_axes(x, (n_out, m_out), ac, aa)
+                dy = torch.randn((2, 5, n_out, m_out), generator=g, device=DEV).to(dtype)
+                worst = max(worst, r1_gap(x, ay.fwd, ax.fwd), r1_gap(dy, ay.adj, ax.adj))
+                n_checked += 2
+    if worst != 0.0:
+        raise SystemExit(f"R1 differs from its plain version by up to {worst}")
+    say(18, f"R1 on {n_checked} cases ({len(R1_RATIOS)} ratios x 3 types x NCHW/NHWC x "
+            f"forward/adjoint): bit-equal to its plain version")
+
+    # (b) the frame's two resizes
+    feats = torch.rand((1, 4 * SIZE, 4 * SIZE, 32), generator=g, device=DEV).permute(0, 3, 1, 2)
+    rgb = torch.rand((1, 3, SIZE, SIZE), generator=g, device=DEV)
+    at = {}
+    for name, x, size in (("frame down", feats, (SIZE, SIZE)),
+                          ("frame up", rgb, (4 * SIZE, 4 * SIZE))):
+        ay, ax = r1_axes(x, size)
+        eye_x = kresize.make_band(np.eye(x.shape[3], dtype=np.float32), DEV)
+        eye_y = kresize.make_band(np.eye(size[0], dtype=np.float32), DEV)
+
+        def two_pass(x=x, ay=ay, ax=ax, eye_x=eye_x, eye_y=eye_y):
+            return kresize.resize(kresize.resize(x, ay.fwd, eye_x), eye_y, ax.fwd)
+
+        got = kresize.resize(x, ay.fwd, ax.fwd)
+        err = float((got - kresize.resize_plain(x, ay.fwd, ax.fwd)).abs().max())
+        if err != 0.0 or not torch.equal(two_pass(), got):
+            raise SystemExit(f"R1 at the {name}: {err} from its plain version, or the two "
+                             f"launches differ from the one")
+        t = turn_times({"R1": lambda x=x, ay=ay, ax=ax: kresize.resize(x, ay.fwd, ax.fwd),
+                        "two launches": two_pass,
+                        "F.interpolate": lambda x=x, size=size: torch.nn.functional.interpolate(
+                            x, size=size, mode="bilinear", align_corners=False, antialias=True)})
+        n_bytes = r1_bytes(x, size)
+        tw, cc, wsp, smem = kresize.launch_shape(x.shape[1], ay.fwd, ax.fwd,
+                                                 x.stride(1) < x.stride(3))
+        at[name] = {"ms": statistics.median(t["R1"]), "ms_spread": least_most(t["R1"]),
+                    "two_pass_ms": statistics.median(t["two launches"]),
+                    "library_ms": statistics.median(t["F.interpolate"]),
+                    "plain_ms": cuda_ms(lambda x=x, ay=ay, ax=ax: kresize.resize_plain(
+                        x, ay.fwd, ax.fwd), reps=3, warmup=1),
+                    "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                    "taps": [ay.fwd.k, ax.fwd.k], "cta": {"columns": tw, "channels": cc,
+                                                          "pitch": wsp, "smem_bytes": smem},
+                    "ctas_per_sm": kresize.occupancy(smem)}
+        a = at[name]
+        say(18, f"R1 {name} {tuple(x.shape)} -> {size}: {a['ms']:.4f} ms (turns "
+                f"{a['ms_spread'][0]:.4f}-{a['ms_spread'][1]:.4f}), bound {a['bound_ms']:.4f} "
+                f"({n_bytes / 1e6:.1f} MB, {a['bound_ms'] / a['ms']:.3f} of it reached); two "
+                f"launches {a['two_pass_ms']:.4f}; F.interpolate {a['library_ms']:.4f}; plain "
+                f"{a['plain_ms']:.4f}; {a['taps']} taps, CTA {a['cta']}, "
+                f"{a['ctas_per_sm']} CTAs an SM")
+    del feats, rgb
+
+    # (c) the training step's largest resizes, forward and backward
+    train = {}
+    for name, shape, size, aa, nhwc in (
+            ("source 518", (R1_BATCH, 518, 518, 3), (SIZE, SIZE), True, True),
+            ("rgb pyramid 148", (R1_BATCH, 3, 518, 518), (148, 148), True, False),
+            ("fusion 148", (R1_BATCH, R1_PATH_CHANNELS, 148, 148), (296, 296), False, False),
+            ("dpt path", (R1_BATCH, R1_PATH_CHANNELS, 296, 296), (SIZE, SIZE), False, False)):
+        x = torch.randn(shape, generator=g, device=DEV)
+        x = x.permute(0, 3, 1, 2) if nhwc else x
+        x.requires_grad_(True)
+        ay, ax = r1_axes(x, size, antialias=aa)
+        out = layers.resize_bilinear(x, size, antialias=aa)
+        dy = torch.randn(out.shape, generator=g, device=DEV)
+        (dx,) = torch.autograd.grad(out, x, dy)
+        xd = x.detach()
+        err = float((out.detach() - kresize.resize_plain(xd, ay.fwd, ax.fwd)).abs().max())
+        err_b = float((dx - kresize.resize_plain(dy, ay.adj, ax.adj)).abs().max())
+        if err != 0.0 or err_b != 0.0:
+            raise SystemExit(f"R1 at the training step's {name}: forward {err}, backward "
+                             f"{err_b} from the plain version")
+        fwd_ms = cuda_ms(lambda: kresize.resize(xd, ay.fwd, ax.fwd))
+        bwd_ms = cuda_ms(lambda: kresize.resize(dy, ay.adj, ax.adj))
+        train[name] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                       "fwd_bound_ms": r1_bytes(xd, size) / HBM_BYTES_PER_S * 1e3,
+                       "bwd_bound_ms": r1_bytes(dy, shape[2:] if not nhwc else shape[1:3])
+                       / HBM_BYTES_PER_S * 1e3}
+        tr = train[name]
+        say(18, f"R1 training {name} {tuple(x.shape)} -> {size}: forward {fwd_ms:.4f} ms "
+                f"(bound {tr['fwd_bound_ms']:.4f}), backward {bwd_ms:.4f} ms (bound "
+                f"{tr['bwd_bound_ms']:.4f}); both bit-equal to the plain version")
+        del x, xd, out, dy, dx
+    torch.cuda.empty_cache()
+    say(18, f"phase 18 in {time.perf_counter() - t0:.1f} s")
+    frame = list(at.values())
+    return {"name": "R1 banded resize", "route": "cuda",
+            "source": "guava_renderer_tpu_torch/csrc/resize.cu", "replaces": None,
+            "max_abs_err": worst, "ms": sum(a["ms"] for a in frame),
+            "plain_ms": sum(a["plain_ms"] for a in frame),
+            "bound_ms": sum(a["bound_ms"] for a in frame), "bound_by": "bytes",
+            "library_ms": sum(a["library_ms"] for a in frame),
+            "two_pass_ms": sum(a["two_pass_ms"] for a in frame), "at": at, "training": train,
+            "ptxas": ptxas_usage("resize_kernelIfE")}
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device ----
@@ -3500,7 +3672,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    k1.launches = k2.launches = 0
+    k1.launches = k2.launches = kresize.launches = 0
     t0 = time.perf_counter()
     seq = [pipe.render_frame(main_avatar, t) for t in targets]
     torch.cuda.synchronize()
@@ -3513,6 +3685,8 @@ def main():
     launches = {"K1": k1.launches, "K2": k2.launches}
     if after_seq != (N_FRAMES, N_FRAMES) or launches != {"K1": 2 * N_FRAMES, "K2": 2 * N_FRAMES}:
         raise SystemExit(f"launch counts {after_seq} then {launches}: expected one of each a frame")
+    if kresize.launches:
+        raise SystemExit(f"frames at the refiner's size launched R1 {kresize.launches} times")
     diff = max(float((s[k] - g[k]).abs().max()) for s, g in zip(seq, grouped)
                for k in ("render", "raw", "invdepth"))
     if diff > 1e-5:
@@ -3602,18 +3776,19 @@ def main():
     cpipe.infer_avatar(csc.source)                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k5.launches = 0
+    k1.launches = k2.launches = k5.launches = kresize.launches = 0
     create_ms = []
     for _ in range(N_CREATIONS):
         t0 = time.perf_counter()
         created, cextra = cpipe.infer_avatar(csc.source)
         torch.cuda.synchronize()
         create_ms.append((time.perf_counter() - t0) * 1e3)
-    create_launches = k5.launches
-    if create_launches != N_CREATIONS * k5.LAUNCHES or k1.launches or k2.launches:
+    create_launches, create_r1 = k5.launches, kresize.launches
+    if create_launches != N_CREATIONS * k5.LAUNCHES or k1.launches or k2.launches \
+            or create_r1 != N_CREATIONS * R1_CREATION:
         raise SystemExit(f"{N_CREATIONS} creations launched K5 {create_launches} times, "
-                         f"K1 {k1.launches}, K2 {k2.launches}: expected one K5 call "
-                         f"({k5.LAUNCHES} launches) a creation")
+                         f"K1 {k1.launches}, K2 {k2.launches}, R1 {create_r1}: expected one K5 "
+                         f"call ({k5.LAUNCHES} launches) and {R1_CREATION} R1 a creation")
     create_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_avatar(created, "creation")
     n_visible = int(cextra["visible_faces"].sum())
@@ -3627,7 +3802,7 @@ def main():
     say(6, f"{N_CREATIONS} creations (ViT-B/14 {FEAT}^2 source, {UV}^2 chart, {n_params / 1e6:.1f}M "
            f"inferer parameters): median {med_create:.2f} ms/creation "
            f"(all: {', '.join(f'{t:.1f}' for t in create_ms)}; limit {CREATE_LIMIT_MS:.0f}); "
-           f"K5 launches {create_launches}; visible faces {n_visible} of {csc.faces.shape[0]}, "
+           f"K5 launches {create_launches}, R1 {create_r1}; visible faces {n_visible} of {csc.faces.shape[0]}, "
            f"visible texel share {texel_share:.4f}; UV rows kept {created.uv_colors.shape[1]} of "
            f"{UV * UV}; peak mem {create_peak_gb:.2f} GB")
     if not med_create <= CREATE_LIMIT_MS:
@@ -3757,13 +3932,15 @@ def main():
         k3_seen.append(k1.bwd_launches)
 
     k1.launches = k1.bwd_launches = k2.launches = k2.bwd_launches = k5.launches = 0
+    kresize.launches = 0
     with tempfile.TemporaryDirectory() as run_dir:
         train_on_batches(state, loss_fn, statics, [tsc.batch], n_steps, run_dir,
                      valid_batches=[tsc.batch], check_interval=10 ** 9, log_every=n_steps,
                      count_scrubbed=True, on_step=on_step, log=train_log.append)
         torch.cuda.synchronize()
         t_saved = time.perf_counter()
-        train_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
+        train_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches,
+                          "R1": kresize.launches}
         ckpts = CheckpointManager(run_dir)
         saved = sorted(f for f in os.listdir(ckpts.dir))
         o_inferer, o_renderer = make_models(tcfg, tsc.smplx.num_vertices)   # on the CPU
@@ -3783,9 +3960,11 @@ def main():
     k3_per_step = [b - a for a, b in zip(k3_seen[:-1], k3_seen[1:])]
     if k3_per_step != [1] * n_steps:
         raise SystemExit(f"training: K3 launches a step {k3_per_step}, expected 1 (the batch size)")
-    # a step calls K1 and K5 once an item; the closing validation adds one of each
+    # a step calls K1 and K5 once an item; the closing validation adds one of each, and
+    # R1 a creation's, without the backward
     if train_launches != {"K1": n_steps + 1, "K3": n_steps,
-                          "K5": (n_steps + 1) * k5.LAUNCHES}:
+                          "K5": (n_steps + 1) * k5.LAUNCHES,
+                          "R1": (n_steps + 1) * R1_CREATION + n_steps * R1_STEP_BACKWARD}:
         raise SystemExit(f"training: launches {train_launches} over {n_steps} steps and one "
                          f"validation")
     moved = {n: float((p.detach() - before[n]).abs().max())
@@ -3829,14 +4008,16 @@ def main():
     # one accumulated step of batch 2
     tsc2 = make_train_scene(SIZE, UV, BODY_SIDE, HEAD_SIDE, feat_size=FEAT, batch_size=2,
                             seed=1, device=DEV)
-    k1.launches = k1.bwd_launches = k5.launches = 0
+    k1.launches = k1.bwd_launches = k5.launches = kresize.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss2, metrics2 = make_sample_scan_step(loss_fn, state, count_scrubbed=True)(tsc2.batch)
     torch.cuda.synchronize()
     accum_ms = (time.perf_counter() - t0) * 1e3
-    accum_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches}
-    if accum_launches != {"K1": 2, "K3": 2, "K5": 2 * k5.LAUNCHES} \
+    accum_launches = {"K1": k1.launches, "K3": k1.bwd_launches, "K5": k5.launches,
+                      "R1": kresize.launches}
+    if accum_launches != {"K1": 2, "K3": 2, "K5": 2 * k5.LAUNCHES,
+                          "R1": 2 * (R1_CREATION + R1_STEP_BACKWARD)} \
             or not math.isfinite(float(loss2)):
         raise SystemExit(f"accumulated step of batch 2: launches {accum_launches}, loss "
                          f"{float(loss2)}")
@@ -3920,6 +4101,10 @@ def main():
         if entry["name"].startswith("K6"):
             entry["launches"] += p17["K6"]
 
+    # ---- 18. the banded resize R1 ----
+    r1 = resize_kernel()
+    r1["launches"] = create_r1 + train_launches["R1"] + accum_launches["R1"]
+
     kernels = [
         {"name": "K1 tile blend", "route": "cuda",
          "source": "guava_renderer_tpu_torch/csrc/blend.cu",
@@ -3957,6 +4142,7 @@ def main():
          **k5_occ},
         *variant_kernels,
         *probe_kernels,
+        r1,
     ]
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise SystemExit(f"non-finite timing in {kernels}")

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("blend.cu", "blend_bwd.cu", "facegather.cu", "facegather_bwd.cu", "meshraster.cu",
            "blend_bf16.cu", "blend_resident.cu", "blend_stream.cu", "gather_rows.cu",
-           "blend_probe.cu", "dma_bench.cu", "stream_sum.cu", "copy_probe.cu")
+           "blend_probe.cu", "dma_bench.cu", "stream_sum.cu", "copy_probe.cu", "resize.cu")
 # included by the sources; part of the build's digest
 HEADERS = ("blend_common.cuh", "blend_subtile.cuh", "blend_subtile_fwd.cuh", "blend_bf16_rows.cuh",
            "async_copy.cuh")
@@ -89,6 +89,12 @@ SIGNATURES = {
     # src, idx (or null), n_seg, base, elem_bytes, seg_bytes, out_off, out_bytes, out, route,
     # stream
     "guava_copy_probe": (_P, _P, _I, _L, _I, _I, _I, _I, _P, _I, _P),
+    # x, dtype, B, C, sb, sc, sh, sw, ys, ty, h_out, ky, xs, tx, w_out, kx, out, rows, tw, cc,
+    # wsp, yspan, smem, chan_fast, vec, stream
+    "guava_resize": (_P, _I, _I, _I, _L, _L, _L, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _P),
+    # smem_bytes, &ctas: resident CTAs an SM of R1's float32 kernel
+    "guava_resize_occupancy": (_I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.logging_utils import span, spanned
+from ..kernels import resize as kresize
+from ..utils.logging_utils import count, span, spanned
 
 
 class _LeakyReLU(torch.autograd.Function):
@@ -76,28 +77,38 @@ def _ac_weights(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_axis(n_in: int, n_out: int, align_corners: bool, antialias: bool,
+                 device: torch.device) -> kresize.Axis:
+    """The (n_out, n_in) interpolation operator's tap tables (and its
+    adjoint's) on `device`, made once: a miss uploads them, under
+    `guava.sync.resize_weights`, and counts `resize.table_uploads`."""
+    w = _ac_weights(n_in, n_out) if align_corners else _halfpix_weights(n_in, n_out, antialias)
+    with span("guava.sync.resize_weights"):
+        axis = kresize.make_axis(w, device)
+    count("resize.table_uploads", 1)
+    return axis
+
+
 @spanned("guava.resize")
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int], align_corners: bool = False,
                     antialias: bool = True) -> torch.Tensor:
-    """NCHW bilinear resize as two interpolation-matrix products.
+    """NCHW bilinear resize: a separable interpolation operator an axis.
 
     align_corners=False is half-pixel sampling; `antialias` matters only on
     a downscale (True: the filtered resize of jax.image / torchvision,
     False: F.interpolate's plain taps). align_corners=True is F.interpolate's
-    align-corners mode."""
+    align-corners mode. Each operator is kept as tap tables
+    (`kernels/resize.py`): on a CUDA device the banded kernel R1 applies
+    them, on the CPU its plain version; the backward is the same on the
+    adjoint tables."""
     H, W = x.shape[-2:]
-    h, w = size
+    h, w = (int(n) for n in size)
     if (H, W) == (h, w):
         return x
-    if align_corners:
-        wy, wx = _ac_weights(H, h), _ac_weights(W, w)
-    else:
-        wy, wx = _halfpix_weights(H, h, antialias), _halfpix_weights(W, w, antialias)
-    with span("guava.sync.resize_weights"):
-        wy = torch.as_tensor(wy, dtype=x.dtype, device=x.device)
-        wx = torch.as_tensor(wx, dtype=x.dtype, device=x.device)
-    x = torch.einsum("bchw,oh->bcow", x, wy)
-    return torch.einsum("bchw,ow->bcho", x, wx)
+    ay = _resize_axis(H, h, align_corners, antialias, x.device)
+    ax = _resize_axis(W, w, align_corners, antialias, x.device)
+    return kresize.banded_resize(x, ay, ax)
 
 
 def harmonic_embedding(x: torch.Tensor, n_freqs: int = 4,

@@ -3,8 +3,9 @@
 With no profiler a span records nothing and a count leaves the counters
 empty. Under torch.profiler on the CPU, a micro frame and a micro training
 step record each layer's span inside `guava.render_frame` and
-`guava.train_step`, on the thread that runs them, and the `instances`
-counter holds what binning binned.
+`guava.train_step`, on the thread that runs them, the `instances`
+counter holds what binning binned, and `resize.table_uploads` the
+resizes' table-cache misses (the first frame's, none on the second).
 """
 
 from pathlib import Path
@@ -17,6 +18,7 @@ from guava_renderer_tpu_torch.cli.inference import FramePipeline
 from guava_renderer_tpu_torch.data.loader import DeviceBatches, PrefetchLoader, endless
 from guava_renderer_tpu_torch.data.synthetic import write_synthetic_dataset
 from guava_renderer_tpu_torch.data.tracked import build_dataset
+from guava_renderer_tpu_torch.models import layers as tlayers
 from guava_renderer_tpu_torch.ops import gsplat
 from guava_renderer_tpu_torch.train.pipeline import make_loss_fn
 from guava_renderer_tpu_torch.train.trainstep import make_train_state, make_train_step
@@ -114,17 +116,34 @@ def test_on_path_records_and_resets():
     assert lu.counters() == {} and lu.span_seconds() == {}
 
 
+def uploads(counters: dict) -> int:
+    """Pop the resizes' table uploads (cache misses) from a counters dict."""
+    return counters.pop("resize.table_uploads", 0)
+
+
 def test_frame_spans_nest_under_render_frame(micro, binned):
+    """The resizes' tables are made on the first frame (`guava.sync.resize_weights`,
+    `resize.table_uploads`) and reused by the second, which uploads nothing."""
     rt, cfg = micro
     item = build_dataset(cfg, "train")[0]
     pipe = FramePipeline.from_runtime(rt)
     avatar, _ = pipe.infer_avatar(item["source"])
+    tlayers._resize_axis.cache_clear()
     binned.clear()
     out, events = profiled(lambda: pipe.render_frame(avatar, item["target"]))
     assert out["render"].shape == (32, 32, 3)
     assert_nested(events, "guava.render_frame", FRAME_SPANS)
-    assert binned and lu.counters() == {"instances": sum(binned)}
+    counters = lu.counters()
+    assert uploads(counters) == 2                 # 32 -> 16 and 16 -> 32, both axes alike
+    assert binned and counters == {"instances": sum(binned)}
     assert lu.span_seconds()["guava.render_frame"] > 0
+
+    binned.clear()
+    _, events = profiled(lambda: pipe.render_frame(avatar, item["target"]))
+    assert_nested(events, "guava.render_frame",
+                  tuple(n for n in FRAME_SPANS if n != "guava.sync.resize_weights"))
+    assert "guava.sync.resize_weights" not in {e[0] for e in events}
+    assert lu.counters() == {"instances": sum(binned)}
 
 
 def test_step_spans_nest_under_train_step(micro, binned):
@@ -133,13 +152,16 @@ def test_step_spans_nest_under_train_step(micro, binned):
     step = make_train_step(make_loss_fn(rt.statics, rt.lpips), state)
     loader = PrefetchLoader(build_dataset(cfg, "train"), 2, seed=0)
     batches = iter(DeviceBatches(endless(loader), torch.device("cpu")))
+    tlayers._resize_axis.cache_clear()
     binned.clear()
     (loss, _), events = profiled(lambda: step(next(batches)))
     assert torch.isfinite(loss)
     assert_nested(events, "guava.train_step", STEP_SPANS)
     names = {e[0] for e in events}
     assert {"guava.loader.wait", "guava.loader.to_device"} <= names
-    assert binned and lu.counters() == {"instances": sum(binned)}
+    counters = lu.counters()
+    assert uploads(counters) > 0
+    assert binned and counters == {"instances": sum(binned)}
     assert lu.span_seconds()["guava.loader.wait"] >= 0.0
 
 
